@@ -1,0 +1,46 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
+package, and its entry points do not fall back to the CPU."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    """In a fresh interpreter with ``jax`` blocked, every module of the
+    port and ``chip_smoke.py`` import, and no ``vantage6_tpu`` module is
+    loaded."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.path.insert(0, sys.argv[1])
+        import vantage6_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                       pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke  # noqa: F401
+        leaked = sorted(m for m in sys.modules
+                        if m == "vantage6_tpu" or m.startswith("vantage6_tpu."))
+        assert not leaked, leaked
+        print(len(names))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code, REPO], cwd=REPO,
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip().splitlines()[-1]) >= 8
+
+
+def test_mesh_without_cuda_requires_explicit_cpu(monkeypatch):
+    from vantage6_tpu_torch.core.mesh import FederationMesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FederationMesh(4)
+    assert FederationMesh(4, device="cpu").device.type == "cpu"
