@@ -6,22 +6,33 @@
 
 Phases, each of which raises (exit code 1) on failure:
 
-1. build every hand-written kernel from ``vantage6_tpu_torch/ops/csrc``;
-2. each kernel against its plain PyTorch version on the card (f32 and
-   bf16, causal and not, ragged and aligned, Tq != Tk with offsets, a fully
-   masked case, the full-width shape), each error beside its tolerance;
+1. build every hand-written kernel from ``vantage6_tpu_torch/ops/csrc``
+   (one ``nvcc`` per source, all at once) and print ptxas's register,
+   spill and shared-memory report;
+2. each kernel against its plain PyTorch version on the card, at the
+   kernel's own tiles: the CUDA-core kernel in f32 and bf16, the
+   tensor-core kernel in bf16 at every head dim it takes, causal and not,
+   Tq and Tk off its tiles, Tq != Tk, ring-hop offsets that leave tiles
+   partly visible, fully masked rows (exact zeros); each error beside its
+   tolerance;
 3. gradients through the autograd wrapper against the dense reference;
 4. the slice at full width: the federated transformer round of the JAX
    package's benchmark model (d_model 1024, 8 layers, 8 heads, seq 1024,
    batch 16, vocab 4096, bf16, 4 stations, flash attention) for 8 rounds
    through ``make_engine``/``init``/``shard_tokens``/``round``, one round
-   with station 3 masked out; the loss must be finite and fall, the kernel
-   must have launched rounds x stations x layers times, and a round with the
+   with station 3 masked out; the loss must be finite and fall, the
+   tensor-core kernel must have launched rounds x stations x layers times
+   and the CUDA-core kernel never, and a round with the
    plain ``recompute`` attention from the same state must give the same
    loss within a bf16 tolerance;
-5. times on the card: ms per round, tokens/s, the kernel's ms per launch,
-   its plain version's, the bound, and ``scaled_dot_product_attention`` at
-   the same shape as a yardstick (the port never calls it).
+5. times on the card: ms per round, tokens/s, and at the main path's
+   shape both kernels' ms per launch on the same tensors (CUDA-core, then
+   tensor-core, twice each in turns), their plain versions', the bound,
+   and ``scaled_dot_product_attention`` as a yardstick (the port never
+   calls it).
+
+``--profile`` traces one more round and reports device time by kernel
+group and under the ``attention_fwd``/``attention_bwd`` profiler ranges.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}`` line
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -33,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -107,8 +119,24 @@ def attention_bound(b, h, t_q, t_k, d, q_offset, k_offset, causal,
                                       else "operations")
 
 
+def compare(fa, torch, out, q, k, v, qo, ko, causal, scale, variant, tol):
+    """Max abs error of a kernel's output against its plain version at the
+    kernel's tiles, checked against tol + tol * max|plain|."""
+    spec = fa.KERNELS[variant]
+    plain = fa.kernel_reference(q, k, v, qo, ko, causal, scale,
+                                spec.block_q, spec.block_k)
+    torch.cuda.synchronize()
+    check(out.shape == q.shape and out.dtype == q.dtype, "kernel output shape")
+    check(bool(torch.isfinite(out.float()).all()), "non-finite output")
+    err = (out.float() - plain.float()).abs().max().item()
+    lim = tol + tol * plain.float().abs().max().item()
+    check(err <= lim, f"{variant} kernel disagrees with its plain version: "
+          f"{err} > {lim}")
+    return err, lim
+
+
 def phase_kernel_vs_plain(fa, torch, dev):
-    """Kernel against its plain version at the kernel's own tiles."""
+    """Each kernel against its plain version at the kernel's own tiles."""
     g = torch.Generator(device=dev).manual_seed(0)
     cases = [
         # dtype, causal, B, H, Tq, Tk, D, q_offset, k_offset
@@ -123,37 +151,51 @@ def phase_kernel_vs_plain(fa, torch, dev):
         ("bf16", True, 1, 2, 1024, 1024, 64, 0, 0),
         ("bf16", False, 1, 2, 1024, 1024, 128, 0, 0),
         ("bf16", True, 2, 2, 100, 228, 32, 128, 0),
+        ("bf16", True, 1, 3, 256, 512, 8, 256, 0),
     ]
+    # the tensor-core kernel at its edges (tiles 128 x 64), each head dim
+    for d in fa.KERNELS["tensor_core"].head_dims:
+        cases += [
+            ("bf16", True, 1, 3, 200, 200, d, 0, 0),  # Tq, Tk off the tiles
+            ("bf16", False, 1, 2, 130, 70, d, 0, 0),  # Tq != Tk, ragged
+            ("bf16", True, 2, 2, 150, 333, d, 183, 0),  # ring hop
+            # keys ahead of queries: rows before 90 fully masked, the rest
+            # see a partly visible tile
+            ("bf16", True, 1, 2, 257, 100, d, 37, 90),
+        ]
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
-    results = []
+    worst = dict.fromkeys(fa.KERNELS, 0.0)
     for name, causal, b, h, t_q, t_k, d, qo, ko in cases:
         dt = dtypes[name]
         q = torch.randn(b, h, t_q, d, generator=g, device=dev).to(dt)
         k = torch.randn(b, h, t_k, d, generator=g, device=dev).to(dt)
         v = torch.randn(b, h, t_k, d, generator=g, device=dev).to(dt)
         scale = d**-0.5
-        out = fa.flash_forward_cuda(q, k, v, qo, ko, causal, scale)
-        plain = fa.kernel_reference(q, k, v, qo, ko, causal, scale,
-                                    fa.KERNEL_BLOCK_Q, fa.KERNEL_BLOCK_K)
-        torch.cuda.synchronize()
-        check(out.shape == q.shape and out.dtype == dt, "kernel output shape")
-        err = (out.float() - plain.float()).abs().max().item()
         tol = F32_TOL if name == "f32" else BF16_TOL
-        lim = tol + tol * plain.float().abs().max().item()
-        print(f"kernel vs plain {name} causal={causal} "
-              f"[{b},{h},{t_q}x{t_k},{d}] off=({qo},{ko}): "
-              f"max_abs_err {err:.3e} tol {lim:.3e}")
-        check(bool(torch.isfinite(out.float()).all()), "non-finite output")
-        check(err <= lim, f"kernel disagrees with its plain version: {err}")
-        results.append(err)
+        # the variant the dispatch picks, and the CUDA-core kernel beside it
+        variants = {fa.kernel_variant(dt, d), "cuda_core"}
+        for variant in sorted(variants):
+            out = fa.flash_forward_cuda(q, k, v, qo, ko, causal, scale,
+                                        variant=variant)
+            err, lim = compare(fa, torch, out, q, k, v, qo, ko, causal,
+                               scale, variant, tol)
+            print(f"{variant} vs plain {name} causal={causal} "
+                  f"[{b},{h},{t_q}x{t_k},{d}] off=({qo},{ko}): "
+                  f"max_abs_err {err:.3e} tol {lim:.3e}")
+            worst[variant] = max(worst[variant], err)
     # fully masked: every query precedes every key -> exact zeros
-    for dt in dtypes.values():
-        q = torch.randn(1, 2, 64, 64, generator=g, device=dev).to(dt)
-        out = fa.flash_forward_cuda(q, q, q, 0, 1000, True, 0.125)
-        torch.cuda.synchronize()
-        check(bool((out == 0).all()), "fully masked rows are not exact zeros")
-    print("kernel fully masked (k_offset=1000): exact zeros")
-    return max(results)
+    for variant, spec in fa.KERNELS.items():
+        for dt in spec.dtypes:
+            for d in spec.head_dims:
+                q = torch.randn(1, 2, 200, d, generator=g, device=dev).to(dt)
+                out = fa.flash_forward_cuda(q, q, q, 0, 1000, True, 0.125,
+                                            variant=variant)
+                torch.cuda.synchronize()
+                check(bool((out == 0).all()),
+                      f"{variant}: fully masked rows are not exact zeros")
+    print("kernels fully masked (k_offset=1000), every dtype and head dim: "
+          "exact zeros")
+    return worst
 
 
 def phase_gradients(fa, torch, dev):
@@ -195,7 +237,9 @@ def phase_slice(fa, ft, torch, dev):
     full = torch.ones(n_s)
     drop = torch.tensor([1.0] * (n_s - 1) + [0.0])
 
-    fa.flash_forward_cuda.launches = 0  # the main path's count starts here
+    # the main path's counts start here
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
     losses, secs = [], []
     state = None
     for r in range(ROUNDS):
@@ -210,11 +254,14 @@ def phase_slice(fa, ft, torch, dev):
         losses.append(loss)
         print(f"round {r} mask={'drop3' if r == DROP_ROUND else 'all'} "
               f"loss {loss:.6f} {1e3 * secs[-1]:.1f} ms")
-    launches = fa.flash_forward_cuda.launches
+    launches = dict(fa.flash_forward_cuda.variant_launches)
     expect = ROUNDS * n_s * cfg.n_layers
     print(f"flash kernel launches on the main path: {launches} "
           f"(rounds x stations x layers = {expect})")
-    check(launches == expect, "the main path did not run the kernel")
+    check(launches["tensor_core"] == expect,
+          "the main path did not run the tensor-core kernel")
+    check(launches["cuda_core"] == 0,
+          "the main path ran the CUDA-core kernel")
     check(all(x == x and abs(x) != float("inf") for x in losses),
           f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -234,7 +281,7 @@ def phase_slice(fa, ft, torch, dev):
           f"recompute {rc_loss:.6f} rel diff {rel:.3e} tol {LOSS_RTOL:.3e}")
     check(rel <= LOSS_RTOL, "flash and plain attention rounds disagree")
     check(fa.flash_forward_cuda.launches == expect,
-          "the plain round launched the kernel")
+          "the plain round launched a kernel")
 
     steady = secs[1:]  # round 0 carries one-time set-up (cuBLAS, build)
     ms = 1e3 * sum(steady) / len(steady)
@@ -251,39 +298,46 @@ def phase_slice(fa, ft, torch, dev):
 
 
 def phase_times(fa, torch, dev):
-    """The kernel at the main path's shape: [16, 8, 1024, 128] bf16."""
+    """Both kernels at the main path's shape, [16, 8, 1024, 128] bf16
+    causal, on the same tensors: the CUDA-core kernel (before) and the
+    tensor-core kernel (after), timed in turns."""
     b, h, t, d = FULL["batch"], FULL["n_heads"], FULL["seq"], \
         FULL["d_model"] // FULL["n_heads"]
     g = torch.Generator(device=dev).manual_seed(2)
     q, k, v = (torch.randn(b, h, t, d, generator=g, device=dev)
                .to(torch.bfloat16) for _ in range(3))
     scale = d**-0.5
-    out = fa.flash_forward_cuda(q, k, v, 0, 0, True, scale)
-    plain = fa.kernel_reference(q, k, v, 0, 0, True, scale,
-                                fa.KERNEL_BLOCK_Q, fa.KERNEL_BLOCK_K)
-    torch.cuda.synchronize()
-    err = (out.float() - plain.float()).abs().max().item()
-    print(f"kernel vs plain at the main path's shape [{b},{h},{t},{d}] "
-          f"bf16 causal: max_abs_err {err:.3e} tol {BF16_TOL:.3e}")
-    check(err <= BF16_TOL + BF16_TOL * plain.float().abs().max().item(),
-          "kernel disagrees with its plain version at full width")
-    del plain
-    kernel_ms = cuda_ms(
-        lambda: fa.flash_forward_cuda(q, k, v, 0, 0, True, scale), 20)
-    plain_ms = cuda_ms(
-        lambda: fa.kernel_reference(q, k, v, 0, 0, True, scale,
-                                    fa.KERNEL_BLOCK_Q, fa.KERNEL_BLOCK_K),
-        3, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale),
                          20)
     bound_ms, bound_by = attention_bound(b, h, t, t, d, 0, 0, True, 2,
                                          PEAK_BF16_FLOPS)
-    print(f"flash_attention_fwd [{b},{h},{t},{d}] bf16 causal: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    res = {}
+    for variant, spec in fa.KERNELS.items():
+        out = fa.flash_forward_cuda(q, k, v, 0, 0, True, scale,
+                                    variant=variant)
+        err, lim = compare(fa, torch, out, q, k, v, 0, 0, True, scale,
+                           variant, BF16_TOL)
+        print(f"{variant} vs plain at the main path's shape [{b},{h},{t},{d}] "
+              f"bf16 causal: max_abs_err {err:.3e} tol {lim:.3e}")
+        plain_ms = cuda_ms(
+            lambda: fa.kernel_reference(q, k, v, 0, 0, True, scale,
+                                        spec.block_q, spec.block_k),
+            3, warmup=1)
+        res[variant] = dict(max_abs_err=err, ms=[], plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+    for variant in ("cuda_core", "tensor_core", "tensor_core", "cuda_core"):
+        res[variant]["ms"].append(cuda_ms(
+            lambda: fa.flash_forward_cuda(q, k, v, 0, 0, True, scale,
+                                          variant=variant), 20))
+    for variant, r in res.items():
+        r["ms_runs"], r["ms"] = r["ms"], sum(r["ms"]) / len(r["ms"])
+        print(f"flash_attention_fwd {variant} [{b},{h},{t},{d}] bf16 causal: "
+              f"kernel {r['ms']:.4f} ms (runs {r['ms_runs'][0]:.4f}, "
+              f"{r['ms_runs'][1]:.4f}), plain {r['plain_ms']:.4f} ms, sdpa "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return res
 
 
 def phase_profile(ft, torch, eng_state):
@@ -297,17 +351,30 @@ def phase_profile(ft, torch, eng_state):
         t0 = time.perf_counter()
         eng.round(params, opt, tokens, mask)[2].item()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    ranges = ("attention_fwd", "attention_bwd")
     rows = []  # (device ms, launches, kernel name): device events only
+    kernel_ms = dict.fromkeys(ranges, 0.0)  # kernels launched in a range
+    span_ms = dict.fromkeys(ranges, 0.0)  # the range's span on the device
     for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        on_device = ev.device_type == torch.autograd.DeviceType.CUDA
+        if ev.key in ranges:
+            # a range is a CPU event and also a device-timeline annotation;
+            # neither is a kernel
+            if on_device:
+                span_ms[ev.key] += ev.device_time_total / 1e3
+            else:
+                kernel_ms[ev.key] += ev.device_time_total / 1e3
+        elif on_device:
             rows.append((ev.self_device_time_total / 1e3, ev.count, ev.key))
     check(bool(rows), "the profiler recorded no device time")
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
 
     def kind(name):
+        if "flash_fwd_wgmma_kernel" in name:
+            return "flash kernel, tensor cores (attention forward)"
         if "flash_fwd_kernel" in name:
-            return "flash kernel (attention forward)"
+            return "flash kernel, CUDA cores (attention forward)"
         if "f32f32" in name:
             return "f32 GEMM (plain attention backward)"
         if "gemm" in name or "nvjet" in name or "xmma" in name:
@@ -323,7 +390,16 @@ def phase_profile(ft, torch, eng_state):
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}%  {name}")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.2f} ms {n:6d}x {key[:90]}")
+    # the profiler attributes a kernel to a range through PyTorch's launch;
+    # a kernel launched through ctypes (the flash kernels) is seen only in
+    # the range's span, here the kernel alone
+    for name in ranges:
+        print(f"  range {name}: PyTorch-launched kernels "
+              f"{kernel_ms[name]:9.2f} ms "
+              f"({100 * kernel_ms[name] / busy_ms:5.1f}% of busy), span on "
+              f"the device {span_ms[name]:9.2f} ms")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, groups=groups,
+                range_kernel_ms=kernel_ms, range_span_ms=span_ms,
                 top=[dict(ms=m, count=n, name=k) for m, n, k in rows[:40]])
 
 
@@ -350,8 +426,13 @@ def main(argv: list[str]) -> int:
     for name, s in build_s.items():
         print(f"build {name}: {s:.1f} s")
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {line.strip()}")
+            fn = re.search(r"Function properties for \S*?(flash_fwd_\w+?E)",
+                           line)
+            if fn:
+                print(f"  {fn.group(1)}")
+            elif any(w in line for w in ("registers", "spill", "smem",
+                                         "Performance Loss")):
+                print(f"    {line.strip()[:150]}")
 
     max_err_cases = phase_kernel_vs_plain(fa, torch, dev)
     phase_gradients(fa, torch, dev)
@@ -362,16 +443,20 @@ def main(argv: list[str]) -> int:
     del eng_state
     times = phase_times(fa, torch, dev)
 
+    names = {"tensor_core": "flash_attention_fwd_tc",
+             "cuda_core": "flash_attention_fwd"}
     kernels = [dict(
-        name="flash_attention_fwd", route="cuda",
-        source="vantage6_tpu_torch/ops/csrc/flash_attention.cu",
+        name=names[variant], variant=variant, route="cuda",
+        source="vantage6_tpu_torch/ops/csrc/"
+               + _build.SOURCES[fa.KERNELS[variant].library],
         replaces="vantage6_tpu/ops/flash_attention.py:31",
-        launches=slice_res["launches"],
-        max_abs_err=times["max_abs_err"], max_err=times["max_abs_err"],
-        ms=times["ms"], kernel_ms=times["ms"], plain_ms=times["plain_ms"],
-        bound_ms=times["bound_ms"], bound_by=times["bound_by"],
-        library_ms=times["library_ms"],
-    )]
+        launches=slice_res["launches"][variant],
+        max_abs_err=times[variant]["max_abs_err"], ms=times[variant]["ms"],
+        plain_ms=times[variant]["plain_ms"],
+        bound_ms=times[variant]["bound_ms"],
+        bound_by=times[variant]["bound_by"],
+        library_ms=times[variant]["library_ms"],
+    ) for variant in names]
     result = dict(card=card, kind=kind, build_s=build_s,
                   max_abs_err_cases=max_err_cases, slice=slice_res,
                   kernels=kernels, profile=prof,

@@ -6,8 +6,8 @@ interpret mode, ``interpreter_twin``, ``recompute_attention``, the dense
 ``flash_attention`` runs the kernel's plain version ``kernel_reference``.
 Tolerances: 2e-5 forward and 3e-5 gradients in float32 — the JAX suite's
 own (tests/test_flash_attention.py); the two sides sum in other orders.
-The card's test (the CUDA kernel against its plain version) is marked
-``cuda`` and skips without a card.
+The card's test (each CUDA kernel against its plain version at that
+kernel's tiles) is marked ``cuda`` and skips without a card.
 """
 import importlib
 
@@ -108,6 +108,47 @@ def test_bf16_forward_matches_jax_flash():
     np.testing.assert_allclose(np32(ours), np32(jax_flash), **BF16_TOL)
 
 
+@pytest.mark.parametrize(
+    "q_offset,k_offset,t_q,t_k",
+    # Tq and Tk off the tensor-core kernel's 128 x 64 tiles; a ring hop that
+    # leaves key tiles partly visible; keys ahead of queries (fully masked
+    # rows)
+    [(0, 0, 200, 200), (0, 0, 130, 70), (183, 0, 150, 333), (37, 90, 257, 100)],
+)
+def test_bf16_kernel_reference_at_tensor_core_tiles(q_offset, k_offset, t_q,
+                                                    t_k):
+    """The plain version at the tensor-core kernel's tiles rounds p as the
+    Pallas kernel and its twin do at the same tiles. Tolerance BF16_TOL, 2
+    bf16 ulps: the sides sum in other f32 orders."""
+    spec = tfa.KERNELS["tensor_core"]
+    b, h, d = 1, 2, 16
+    (jq, tq) = both(rand((b, h, t_q, d), 40), "bfloat16")
+    (jk, tk), (jv, tv) = (both(rand((b, h, t_k, d), s), "bfloat16")
+                          for s in (41, 42))
+    kw = dict(q_offset=q_offset, k_offset=k_offset, causal=True,
+              block_q=spec.block_q, block_k=spec.block_k)
+    ours = tfa.kernel_reference(tq, tk, tv, **kw)
+    assert ours.dtype == torch.bfloat16
+    jax_flash = jfa.flash_attention(jq, jk, jv, interpret=True, **kw)
+    twin = jfa.interpreter_twin(jq, jk, jv, **kw)
+    np.testing.assert_allclose(np32(ours), np32(jax_flash), **BF16_TOL)
+    np.testing.assert_allclose(np32(ours), np32(twin), **BF16_TOL)
+
+
+@pytest.mark.parametrize(
+    "dtype,d,variant",
+    [(torch.bfloat16, d, "tensor_core") for d in (16, 32, 64, 128)]
+    + [(torch.float32, d, "cuda_core") for d in (8, 16, 32, 64, 128)]
+    + [(torch.bfloat16, 8, "cuda_core")],
+)
+def test_kernel_variant_dispatch(dtype, d, variant):
+    """bf16 at D >= 16 goes to the tensor cores; f32 (TF32 would miss 2e-5)
+    and D = 8 (below wgmma's k16) stay on the CUDA cores."""
+    assert tfa.kernel_variant(dtype, d) == variant
+    spec = tfa.KERNELS[variant]
+    assert dtype in spec.dtypes and d in spec.head_dims
+
+
 def _torch_grads(fn, arrays, loss):
     ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
     loss(fn(*ts)).backward()
@@ -196,6 +237,8 @@ def test_unsupported_device_and_shapes_raise():
     x = torch.zeros(1, 1, 8, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfa.flash_forward_cuda(x, x, x, 0, 0, False, 1.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfa.flash_forward_cuda(x, x, x, 0, 0, False, 1.0, variant="cuda_core")
 
 
 @pytest.fixture
@@ -207,17 +250,25 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
-def test_cuda_kernel_matches_plain_version(cuda, dtype, d):
+@pytest.mark.parametrize(
+    "variant,dtype,d",
+    [(variant, dtype, d) for variant, spec in tfa.KERNELS.items()
+     for dtype in spec.dtypes for d in spec.head_dims],
+)
+def test_cuda_kernel_matches_plain_version(cuda, variant, dtype, d):
+    """Each kernel against its plain version at the tiles of that kernel."""
+    spec = tfa.KERNELS[variant]
     g = torch.Generator(device="cpu").manual_seed(d)
     for t_q, t_k, qo, ko, causal in [(96, 96, 0, 0, True), (64, 64, 0, 0, False),
-                                      (32, 64, 32, 0, True), (16, 16, 0, 1000, True)]:
+                                      (32, 64, 32, 0, True), (16, 16, 0, 1000, True),
+                                      (200, 130, 70, 0, True)]:
         q = torch.randn(2, 3, t_q, d, generator=g).to(cuda, dtype)
         k = torch.randn(2, 3, t_k, d, generator=g).to(cuda, dtype)
         v = torch.randn(2, 3, t_k, d, generator=g).to(cuda, dtype)
-        out = tfa.flash_forward_cuda(q, k, v, qo, ko, causal, d**-0.5)
-        plain = tfa.kernel_reference(q, k, v, qo, ko, causal, d**-0.5)
+        out = tfa.flash_forward_cuda(q, k, v, qo, ko, causal, d**-0.5,
+                                     variant=variant)
+        plain = tfa.kernel_reference(q, k, v, qo, ko, causal, d**-0.5,
+                                     spec.block_q, spec.block_k)
         torch.cuda.synchronize()
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         np.testing.assert_allclose(np32(out.cpu()), np32(plain.cpu()), **tol)

@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 # library name -> source file under csrc/
-SOURCES = {"flash_attention": "flash_attention.cu"}
+SOURCES = {"flash_attention": "flash_attention.cu",
+           "flash_attention_tc": "flash_attention_tc.cu"}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -9,6 +9,11 @@
 // acc in f32, p rounded to v's dtype before p.v, and the output
 // acc / (l > 0 ? l : 1) in q's dtype, so fully masked rows are exactly 0.
 //
+// Which calls it serves: f32 (the tensor cores would round it to TF32) and
+// D = 8 (below wgmma's k16 depth). bf16 at D >= 16 goes to the tensor-core
+// kernel in flash_attention_tc.cu; this one still takes bf16 at every D, so
+// the two can be held against each other on the same inputs.
+//
 // Design. One thread block of 128 threads per (b*h, 64-row query tile).
 // The query tile is staged once in shared memory as f32; the block then
 // walks the 64-row key/value tiles (this loop replaces the TPU's sequential

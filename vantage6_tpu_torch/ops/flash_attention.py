@@ -2,12 +2,15 @@
 
 Counterpart of ``vantage6_tpu/ops/flash_attention.py``, in the same
 ``[B, H, T, D]`` layout and with the same public signatures. The forward of
-``flash_attention`` is the CUDA kernel ``csrc/flash_attention.cu`` (the port
-of the Pallas ``_kernel``) for CUDA tensors, and its plain PyTorch version
+``flash_attention`` is a hand-written CUDA kernel (the port of the Pallas
+``_kernel``) for CUDA tensors, and its plain PyTorch version
 ``kernel_reference`` for CPU tensors; there is no ``interpret`` argument,
-the device of the tensors decides. The backward is ``_attention_bwd``, a
-plain blockwise recompute, as in the JAX package, where it is ``jnp`` and
-not a Pallas kernel.
+the device of the tensors decides. Two kernels serve CUDA tensors, chosen
+by ``kernel_variant``: ``csrc/flash_attention_tc.cu`` on the tensor cores
+for bf16 at D >= 16, and ``csrc/flash_attention.cu`` on the CUDA cores for
+f32 and for D = 8. The backward is ``_attention_bwd``, a plain blockwise
+recompute, as in the JAX package, where it is ``jnp`` and not a Pallas
+kernel.
 
 ``q_offset``/``k_offset`` give the global position of the first query/key
 token, so the same kernel serves monolithic causal attention (offsets 0)
@@ -16,6 +19,7 @@ and each hop of ring attention.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -24,12 +28,47 @@ from vantage6_tpu_torch.ops import _build
 NEG_INF = -1e30
 M_FLOOR = -1e20
 
-# head dims the CUDA kernel is instantiated for, and its tiles (BLOCK_Q,
-# BLOCK_K in csrc/flash_attention.cu): its plain version at these block
-# sizes rounds p against the same running max
-KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
-KERNEL_BLOCK_Q = KERNEL_BLOCK_K = 64
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelVariant:
+    """One hand-written forward kernel: its library (``_build.SOURCES``),
+    C entry point, tiles (BLOCK_Q, BLOCK_K in its source: the plain version
+    at these block sizes rounds p against the same running max), and the
+    dtypes and head dims it is instantiated for."""
+
+    library: str
+    symbol: str
+    block_q: int
+    block_k: int
+    dtypes: tuple
+    head_dims: tuple
+
+
+KERNELS = {
+    # wgmma on the tensor cores, cp.async K/V ring (csrc/flash_attention_tc.cu)
+    "tensor_core": KernelVariant(
+        "flash_attention_tc", "v6t_flash_attention_fwd_tc", 128, 64,
+        (torch.bfloat16,), (16, 32, 64, 128),
+    ),
+    # f32 FMA on the CUDA cores (csrc/flash_attention.cu)
+    "cuda_core": KernelVariant(
+        "flash_attention", "v6t_flash_attention_fwd", 64, 64,
+        (torch.float32, torch.bfloat16), (8, 16, 32, 64, 128),
+    ),
+}
+
+
+def kernel_variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel that serves a CUDA call. The tensor cores take bf16 at
+    D >= 16; f32 stays on the CUDA cores, because the tensor cores would
+    round it to TF32 and miss the reference's 2e-5, and so does D = 8,
+    below wgmma's k16 depth."""
+    tc = KERNELS["tensor_core"]
+    if dtype in tc.dtypes and d in tc.head_dims:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _default_scale(d: int, scale: float | None) -> float:
@@ -48,12 +87,15 @@ def _f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def flash_forward_cuda(q, k, v, q_offset, k_offset, causal, scale):
-    """Launch the CUDA kernel: o = softmax(q k^T * scale, masked) v.
+def flash_forward_cuda(q, k, v, q_offset, k_offset, causal, scale,
+                       variant=None):
+    """Launch a CUDA kernel: o = softmax(q k^T * scale, masked) v.
 
     Takes contiguous CUDA tensors of one dtype (float32 or bfloat16),
-    q ``[B, H, Tq, D]``, k and v ``[B, H, Tk, D]``, D in KERNEL_HEAD_DIMS;
-    raises on anything else. Ragged Tq/Tk are masked inside the kernel."""
+    q ``[B, H, Tq, D]``, k and v ``[B, H, Tk, D]``; raises on anything the
+    kernel does not take. ``variant`` (a key of ``KERNELS``) defaults to
+    ``kernel_variant(dtype, D)``. Ragged Tq/Tk are masked inside the
+    kernel."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
@@ -71,38 +113,43 @@ def flash_forward_cuda(q, k, v, q_offset, k_offset, causal, scale):
     t_k = k.shape[2]
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"shape mismatch q={q.shape} k={k.shape} v={v.shape}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
+    variant = kernel_variant(q.dtype, d) if variant is None else variant
+    spec = KERNELS[variant]
+    if q.dtype not in spec.dtypes or d not in spec.head_dims:
+        raise ValueError(f"the {variant} kernel takes {spec.dtypes} at head "
+                         f"dims {spec.head_dims}, not {q.dtype} at {d}")
+    if variant == "tensor_core" and not scale > 0:
+        raise ValueError(f"the tensor_core kernel takes scale > 0, not {scale}")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned")
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    lib = _flash_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.v6t_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _KERNEL_DTYPES[q.dtype], b * h, t_q, t_k, d,
-            int(q_offset), int(k_offset), int(bool(causal)), float(scale),
-            stream,
-        )
-    _build.check(lib, err, "flash_attention_fwd launch")
-    flash_forward_cuda.launches += 1
-    return o
-
-
-flash_forward_cuda.launches = 0  # kernel launches; reset by the caller
-
-
-def _flash_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    fn = lib.v6t_flash_attention_fwd
+    lib = _build.load(spec.library)
+    fn = getattr(lib, spec.symbol)
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-    return lib
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            _KERNEL_DTYPES[q.dtype], b * h, t_q, t_k, d,
+            int(q_offset), int(k_offset), int(bool(causal)), float(scale),
+            stream,
+        )
+    _build.check(lib, err, f"flash_attention_fwd ({variant}) launch")
+    flash_forward_cuda.launches += 1
+    flash_forward_cuda.variant_launches[variant] += 1
+    return o
+
+
+# kernel launches, in all and per variant; reset by the caller
+flash_forward_cuda.launches = 0
+flash_forward_cuda.variant_launches = dict.fromkeys(KERNELS, 0)
 
 
 def kernel_reference(
@@ -283,7 +330,9 @@ class _RecomputeVJP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset, k_offset, causal, scale, forward):
-        o = forward(q, k, v, q_offset, k_offset, causal, scale)
+        # profiler ranges: device time of the round by module
+        with torch.profiler.record_function("attention_fwd"):
+            o = forward(q, k, v, q_offset, k_offset, causal, scale)
         ctx.save_for_backward(q, k, v, o)
         ctx.attrs = (q_offset, k_offset, causal, scale)
         return o
@@ -291,7 +340,8 @@ class _RecomputeVJP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = _attention_bwd(q, k, v, o, do, *ctx.attrs)
+        with torch.profiler.record_function("attention_bwd"):
+            dq, dk, dv = _attention_bwd(q, k, v, o, do, *ctx.attrs)
         return dq, dk, dv, None, None, None, None, None
 
 
