@@ -136,14 +136,40 @@ def test_bf16_kernel_reference_at_tensor_core_tiles(q_offset, k_offset, t_q,
 
 
 @pytest.mark.parametrize(
+    "q_offset,k_offset,t_q,t_k",
+    # Tq and Tk off the TF32x3 kernel's 128 x 64 tiles; a ring hop; keys
+    # ahead of queries (the first 53 rows fully masked)
+    [(0, 0, 200, 200), (0, 0, 130, 70), (183, 0, 150, 333), (37, 90, 257, 100)],
+)
+def test_f32_kernel_reference_at_tf32x3_tiles(q_offset, k_offset, t_q, t_k):
+    """The plain version at the TF32x3 kernel's tiles, in f32, against the
+    Pallas kernel in interpret mode; fully masked rows are exact zeros on
+    both sides. Tolerance F32_TOL."""
+    spec = tfa.KERNELS["tf32x3"]
+    b, h, d = 1, 2, 16
+    (jq, tq) = both(rand((b, h, t_q, d), 43))
+    (jk, tk), (jv, tv) = (both(rand((b, h, t_k, d), s)) for s in (44, 45))
+    kw = dict(q_offset=q_offset, k_offset=k_offset, causal=True,
+              block_q=spec.block_q, block_k=spec.block_k)
+    ours = tfa.kernel_reference(tq, tk, tv, **kw)
+    assert ours.dtype == torch.float32
+    jax_flash = jfa.flash_attention(jq, jk, jv, interpret=True, **kw)
+    np.testing.assert_allclose(np32(ours), np32(jax_flash), **F32_TOL)
+    masked = min(t_q, max(0, k_offset - q_offset))  # rows before every key
+    np.testing.assert_array_equal(np32(ours)[:, :, :masked], 0.0)
+    np.testing.assert_array_equal(np32(jax_flash)[:, :, :masked], 0.0)
+
+
+@pytest.mark.parametrize(
     "dtype,d,variant",
     [(torch.bfloat16, d, "tensor_core") for d in (16, 32, 64, 128)]
-    + [(torch.float32, d, "cuda_core") for d in (8, 16, 32, 64, 128)]
+    + [(torch.float32, d, "tf32x3") for d in (8, 16, 32, 64, 128)]
     + [(torch.bfloat16, 8, "cuda_core")],
 )
 def test_kernel_variant_dispatch(dtype, d, variant):
-    """bf16 at D >= 16 goes to the tensor cores; f32 (TF32 would miss 2e-5)
-    and D = 8 (below wgmma's k16) stay on the CUDA cores."""
+    """bf16 at D >= 16 goes to wgmma; f32 goes to the tensor cores in three
+    TF32 passes at every D (one pass would miss 2e-5); bf16 at D = 8 (below
+    wgmma's k16) stays on the CUDA cores."""
     assert tfa.kernel_variant(dtype, d) == variant
     spec = tfa.KERNELS[variant]
     assert dtype in spec.dtypes and d in spec.head_dims

@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 # library name -> source file under csrc/
 SOURCES = {"flash_attention": "flash_attention.cu",
-           "flash_attention_tc": "flash_attention_tc.cu"}
+           "flash_attention_tc": "flash_attention_tc.cu",
+           "flash_attention_tf32": "flash_attention_tf32.cu"}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

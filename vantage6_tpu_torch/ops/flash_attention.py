@@ -5,10 +5,12 @@ Counterpart of ``vantage6_tpu/ops/flash_attention.py``, in the same
 ``flash_attention`` is a hand-written CUDA kernel (the port of the Pallas
 ``_kernel``) for CUDA tensors, and its plain PyTorch version
 ``kernel_reference`` for CPU tensors; there is no ``interpret`` argument,
-the device of the tensors decides. Two kernels serve CUDA tensors, chosen
-by ``kernel_variant``: ``csrc/flash_attention_tc.cu`` on the tensor cores
-for bf16 at D >= 16, and ``csrc/flash_attention.cu`` on the CUDA cores for
-f32 and for D = 8. The backward is ``_attention_bwd``, a plain blockwise
+the device of the tensors decides. Three kernels serve CUDA tensors,
+chosen by ``kernel_variant``: ``csrc/flash_attention_tc.cu`` (wgmma) for
+bf16 at D >= 16, ``csrc/flash_attention_tf32.cu`` (mma.sync in three TF32
+passes, f32 accuracy) for f32 at every D, both on the tensor cores, and
+``csrc/flash_attention.cu`` on the CUDA cores for bf16 at D = 8. The
+backward is ``_attention_bwd``, a plain blockwise
 recompute, as in the JAX package, where it is ``jnp`` and not a Pallas
 kernel.
 
@@ -52,6 +54,12 @@ KERNELS = {
         "flash_attention_tc", "v6t_flash_attention_fwd_tc", 128, 64,
         (torch.bfloat16,), (16, 32, 64, 128),
     ),
+    # mma.sync m16n8k8 in three TF32 passes, cp.async K/V ring
+    # (csrc/flash_attention_tf32.cu)
+    "tf32x3": KernelVariant(
+        "flash_attention_tf32", "v6t_flash_attention_fwd_tf32x3", 128, 64,
+        (torch.float32,), (8, 16, 32, 64, 128),
+    ),
     # f32 FMA on the CUDA cores (csrc/flash_attention.cu)
     "cuda_core": KernelVariant(
         "flash_attention", "v6t_flash_attention_fwd", 64, 64,
@@ -61,13 +69,14 @@ KERNELS = {
 
 
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
-    """The kernel that serves a CUDA call. The tensor cores take bf16 at
-    D >= 16; f32 stays on the CUDA cores, because the tensor cores would
-    round it to TF32 and miss the reference's 2e-5, and so does D = 8,
-    below wgmma's k16 depth."""
-    tc = KERNELS["tensor_core"]
-    if dtype in tc.dtypes and d in tc.head_dims:
-        return "tensor_core"
+    """The kernel that serves a CUDA call. bf16 at D >= 16 goes to wgmma;
+    f32 goes to the tensor cores in three TF32 passes at every D (one pass
+    would miss the reference's 2e-5); bf16 at D = 8, below wgmma's k16
+    depth, stays on the CUDA cores."""
+    for variant in ("tensor_core", "tf32x3"):
+        spec = KERNELS[variant]
+        if dtype in spec.dtypes and d in spec.head_dims:
+            return variant
     return "cuda_core"
 
 
