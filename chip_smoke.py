@@ -33,11 +33,27 @@ Phases, each of which raises (exit code 1) on failure:
    CUDA-core kernel's on the same tensors, in turns (bf16: tensor-core;
    f32: TF32x3), their plain versions', the bound, and
    ``scaled_dot_product_attention`` in the same dtype as a yardstick (the
-   port never calls it).
+   port never calls it);
+6. the flagship FedAvg-CNN at full size (the JAX package's benchmark
+   config: 32 stations x 256 examples, Dirichlet 0.5, noise 2.0, 10 local
+   steps of batch 32 at lr 0.05, server sgd(1.0), bf16 compute, 5 fused
+   rounds) through ``make_engine``/``make_federated_data``/
+   ``init_params``/``init``/``run_rounds``: a fresh 5-round run whose
+   loss must fall and whose accuracy on the held-out set must pass 0.2;
+   the warm-up and capture time of the CUDA graph, ms/round of the fused
+   run (median of 3), of ``round()`` driven eagerly and of the fused
+   station loop (the form without vmap), peak memory; no flash kernel may
+   launch. Then the identities, with cuDNN's deterministic algorithms:
+   fused == eager rounds from the same state and indices (exactly), the
+   vmap step == the station loop (bf16 tolerance), a masked round ==
+   ``fed_mean`` over the other stations, ``async_round`` ==
+   ``round(mask=accept * discount**staleness)`` (exactly), and
+   ``learning_stats=True`` gives ``[5, 32]`` stats.
 
 ``--profile`` traces one more round of each run of phase 4
 (torch.profiler) and reports device time by kernel group and under the
-``attention_fwd``/``attention_bwd`` profiler ranges.
+``attention_fwd``/``attention_bwd`` profiler ranges, and one fused round of
+phase 6 with the device's busy share.
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}`` line
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -82,6 +98,15 @@ FULL = dict(d_model=1024, n_layers=8, n_heads=8, seq=1024, batch=16,
             vocab=4096, stations=4)
 ROUNDS = 8
 DROP_ROUND = 2  # station 3 is masked out in this round
+
+# the JAX package's flagship FedAvg-CNN benchmark (bench.py N_STATIONS,
+# N_PER_STATION, LOCAL_STEPS, BATCH, LR, SPMD_ROUNDS, SYNTH_NOISE,
+# TIMED_RUNS; Dirichlet alpha 0.5; server sgd(1.0); bf16 compute)
+FEDAVG = dict(stations=32, per_station=256, alpha=0.5, noise=2.0,
+              local_steps=10, batch=32, lr=0.05, rounds=5, timed_runs=3)
+# its held-out eval set (bench.py _eval_data): fresh synthetic draws
+FEDAVG_EVAL = dict(n=2048, seed=777, noise=2.0)
+FEDAVG_MIN_ACCURACY = 0.2  # twice chance on 10 classes
 
 
 def check(ok: bool, msg: str) -> None:
@@ -453,6 +478,300 @@ def phase_profile(ft, torch, eng_state, run):
                 top=[dict(ms=m, count=n, name=k) for m, n, k in rows[:40]])
 
 
+def cnn_round_flops(cfg: dict) -> float:
+    """bench.py's analytic FLOPs of one FedAvg-CNN round (all stations): 3x
+    the forward's conv and dense multiply-adds, 2 FLOPs each."""
+    fwd = (28 * 28 * 32 * 9 * 2 + 14 * 14 * 64 * 9 * 32 * 2
+           + 7 * 7 * 64 * 128 * 2 + 128 * 10 * 2)
+    return 3.0 * fwd * cfg["batch"] * cfg["local_steps"] * cfg["stations"]
+
+
+def _max_diff(torch, a, b) -> float:
+    from vantage6_tpu_torch._tree import tree_leaves
+
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+
+def phase_fedavg(fa, torch, dev):
+    """The flagship FedAvg-CNN at full size through the port's entry points
+    (make_engine -> make_federated_data -> init_params -> init ->
+    run_rounds): times, accuracy and the identities the engine promises."""
+    from vantage6_tpu_torch.fed.fedavg import WARMUP_ROUNDS
+    from vantage6_tpu_torch.utils.datasets import synthetic_image_classes
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    cfg = FEDAVG
+    n_s, k = cfg["stations"], cfg["rounds"]
+    sync = torch.cuda.synchronize
+
+    def engine(**kw):
+        return W.make_engine(n_stations=n_s, device=dev,
+                             local_steps=cfg["local_steps"],
+                             batch_size=cfg["batch"], local_lr=cfg["lr"],
+                             **kw)
+
+    eng = engine(learning_stats=False)
+    sx, sy, counts = W.make_federated_data(
+        n_s, n_per_station=cfg["per_station"], alpha=cfg["alpha"], seed=0,
+        mesh=eng.mesh, noise=cfg["noise"])
+    params0 = W.init_params(1, device=dev)
+    opt0 = eng.init(params0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    print(f"fedavg data: x {tuple(sx.shape)} counts min "
+          f"{counts.min().item():.0f} max {counts.max().item():.0f}")
+
+    # the main path's counts start here: a fresh run from the init, which
+    # warms up, captures the round and replays it k times
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    sync()
+    t0 = time.perf_counter()
+    params, opt, losses, _ = eng.run_rounds(params0, sx, sy, counts, gen, k,
+                                            opt_state=opt0)
+    losses = losses.tolist()
+    first_s = time.perf_counter() - t0
+    capture = eng.last_capture
+    check(capture is not None, "run_rounds did not capture a CUDA graph")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"non-finite fedavg loss {losses}")
+    check(losses[-1] < losses[0], f"fedavg loss did not fall: {losses}")
+    ex, ey = synthetic_image_classes(FEDAVG_EVAL["n"], seed=FEDAVG_EVAL["seed"],
+                                     noise=FEDAVG_EVAL["noise"])
+    acc = W.evaluate(params, ex, ey)
+    print(f"fedavg fresh {k}-round run: losses "
+          f"{[round(x, 4) for x in losses]}, accuracy {acc:.4f} "
+          f"({FEDAVG_EVAL['n']} eval examples)")
+    check(acc > FEDAVG_MIN_ACCURACY, f"fedavg accuracy {acc} <= "
+          f"{FEDAVG_MIN_ACCURACY}")
+
+    def timed_fused(e):
+        """ms per round: median over timed runs of k replayed rounds, each
+        run chained from the last and ended by a host pull."""
+        p, o = params, opt
+        runs = []
+        for _ in range(cfg["timed_runs"]):
+            sync()
+            t0 = time.perf_counter()
+            p, o, ls, _ = e.run_rounds(p, sx, sy, counts, gen, k,
+                                       opt_state=o)
+            ls[-1].item()
+            runs.append(1e3 * (time.perf_counter() - t0) / k)
+        return sorted(runs)[len(runs) // 2], runs
+
+    fused_ms, fused_runs = timed_fused(eng)
+    eager = []
+    p, o = params, opt
+    for _ in range(k + 1):
+        sync()
+        t0 = time.perf_counter()
+        p, o, loss, _ = eng.round(p, o, sx, sy, counts, gen)
+        loss.item()
+        eager.append(1e3 * (time.perf_counter() - t0))
+    eager_ms = sorted(eager[1:])[len(eager[1:]) // 2]  # the first sets up
+    launches = dict(fa.flash_forward_cuda.variant_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(sum(launches.values()) == 0,
+          f"the fedavg run launched a flash kernel: {launches}")
+
+    # the station loop instead of vmap, captured and timed the same way
+    loop = engine(learning_stats=False, station_vmap=False)
+    loop.run_rounds(params0, sx, sy, counts, gen, 1, opt_state=opt0)
+    loop_capture = loop.last_capture
+    loop_ms, loop_runs = timed_fused(loop)
+    flops = cnn_round_flops(cfg)
+    res = dict(
+        config=dict(cfg, compute="bfloat16", server="sgd(1.0)"),
+        first_run_s=first_s, capture=capture, losses=losses,
+        final_loss=losses[-1], accuracy=acc,
+        fused_ms_per_round=fused_ms, fused_runs_ms=fused_runs,
+        rounds_per_s=1e3 / fused_ms, eager_ms_per_round=eager_ms,
+        eager_rounds_ms=eager, loop_fused_ms_per_round=loop_ms,
+        loop_fused_runs_ms=loop_runs, loop_capture=loop_capture,
+        peak_mem_gb=peak_gb, launches=launches,
+        flops_per_round=flops,
+        flops_bound_ms=1e3 * flops / PEAK_BF16_FLOPS,
+    )
+    for name, c in (("vmap", capture), ("station loop", loop_capture)):
+        print(f"fedavg {name} capture: warm-up {c['warmup_s']:.3f} s "
+              f"({WARMUP_ROUNDS} rounds), capture {c['capture_s']:.3f} s")
+    print(f"fedavg first run (warm-up + capture + {k} rounds): "
+          f"{first_s:.3f} s")
+    print(f"fedavg fused (vmap): {fused_ms:.3f} ms/round "
+          f"({1e3 / fused_ms:.1f} rounds/s; runs {fused_runs}); eager "
+          f"round(): {eager_ms:.3f} ms/round; fused station loop: "
+          f"{loop_ms:.3f} ms/round; peak {peak_gb:.3f} GB; "
+          f"{flops / 1e9:.1f} GFLOP/round, bound "
+          f"{res['flops_bound_ms']:.4f} ms at the bf16 peak")
+
+    # the identities, on engines of their own with cuDNN's deterministic
+    # algorithms, so that the same round gives the same bits twice
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gates = fedavg_gates(torch, engine, params0, sx, sy, counts, gen, k)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    res["gates"] = gates
+    return res, (eng, params, opt, sx, sy, counts, gen)
+
+
+def fedavg_gates(torch, engine, params0, sx, sy, counts, gen, k):
+    """Checks every identity, then raises naming each that does not hold;
+    returns the errors."""
+    from vantage6_tpu_torch._tree import tree_leaves, tree_map
+    from vantage6_tpu_torch.fed.collectives import fed_mean
+    from vantage6_tpu_torch.fed.fedavg import AsyncRoundSpec
+
+    n_s = counts.shape[0]
+    failed = []
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    eng = engine(learning_stats=False)
+    opt0 = eng.init(params0)
+    idx = eng.draw_batch_indices(counts, gen, k)
+    out = {}
+
+    # k fused rounds == k eager round() calls, same state, same indices
+    p, o, losses, _ = eng.run_rounds(params0, sx, sy, counts, None, k,
+                                     opt_state=opt0, batch_idx=idx)
+    q, r, eager_losses = params0, opt0, []
+    for i in range(k):
+        q, r, loss, _ = eng.round(q, r, sx, sy, counts, batch_idx=idx[i])
+        eager_losses.append(loss)
+    out["fused_vs_eager_params"] = _max_diff(torch, p, q)
+    out["fused_vs_eager_loss"] = _max_diff(torch, losses,
+                                           torch.stack(eager_losses))
+    print(f"gate fused == eager ({k} rounds, injected indices): params "
+          f"max_abs_err {out['fused_vs_eager_params']:.3e}, losses "
+          f"{out['fused_vs_eager_loss']:.3e} (tolerance 0: the same kernels)")
+    gate(out["fused_vs_eager_params"] == 0 and out["fused_vs_eager_loss"] == 0,
+          "fused rounds differ from eager rounds")
+
+    # the batched (vmap) station step == the station loop, one round
+    a = eng.round(params0, opt0, sx, sy, counts, batch_idx=idx[0])
+    b = engine(learning_stats=False, station_vmap=False).round(
+        params0, opt0, sx, sy, counts, batch_idx=idx[0])
+    step = max((x - y).abs().max().item() for x, y in zip(
+        tree_leaves(a[0]), tree_leaves(params0)))
+    out["vmap_vs_loop_params"] = _max_diff(torch, a[0], b[0])
+    # bf16 compute: the grouped convolution sums in another order; 8 bf16
+    # ulps (2^-8) of the round's largest parameter step
+    lim = 8 * 2.0**-8 * step
+    print(f"gate vmap == loop (one round): params max_abs_err "
+          f"{out['vmap_vs_loop_params']:.3e} tol {lim:.3e}; loss "
+          f"{a[2].item():.6f} vs {b[2].item():.6f}")
+    gate(out["vmap_vs_loop_params"] <= lim, "vmap and loop rounds differ")
+    gate(abs(a[2].item() - b[2].item()) <= 2.0**-8 * abs(b[2].item()),
+          "vmap and loop round losses differ")
+
+    # one station masked out == fed_mean over the others (sgd(1.0))
+    drop = n_s // 2
+    mask = torch.ones_like(counts)
+    mask[drop] = 0
+    masked = eng.round(params0, opt0, sx, sy, counts, mask=mask,
+                       batch_idx=idx[0])
+    with torch.no_grad():
+        deltas, _ = eng.mesh.fed_map(eng._local_update, sx, sy, idx[0],
+                                     replicated_args=(params0,), batched=True)
+    keep = [s for s in range(n_s) if s != drop]
+    mean = fed_mean(tree_map(lambda d: d[keep], deltas),
+                    weights=counts[keep])
+    expect = tree_map(torch.add, params0, mean)
+    out["masked_vs_mean_of_others"] = _max_diff(torch, masked[0], expect)
+    # f32 sums over 31 or 32 stations in another order: a few f32 ulps
+    lim = 2.0**-20 * max(x.abs().max().item() for x in tree_leaves(expect))
+    print(f"gate masked round == fed_mean of the other {n_s - 1}: params "
+          f"max_abs_err {out['masked_vs_mean_of_others']:.3e} tol {lim:.3e}")
+    gate(out["masked_vs_mean_of_others"] <= lim,
+          "a masked round is not the mean over the other stations")
+
+    # async_round == round(mask = accept * discount**staleness)
+    spec = AsyncRoundSpec(quorum=n_s // 2, staleness_discount=0.5)
+    g = torch.Generator().manual_seed(3)
+    accept = (torch.rand(n_s, generator=g) < 0.6).float().to(counts.device)
+    stale = torch.randint(0, 4, (n_s,), generator=g).float().to(counts.device)
+    a = eng.async_round(params0, opt0, sx, sy, counts, None, accept, stale,
+                        spec, batch_idx=idx[0])
+    b = eng.round(params0, opt0, sx, sy, counts,
+                  mask=accept * 0.5**stale, batch_idx=idx[0])
+    out["async_vs_masked_round"] = _max_diff(torch, a[0], b[0])
+    print(f"gate async_round == round(accept * 0.5**stale): params "
+          f"max_abs_err {out['async_vs_masked_round']:.3e} (tolerance 0)")
+    gate(out["async_vs_masked_round"] == 0 and bool(a[2] == b[2]),
+          "async_round differs from the discounted-mask round")
+
+    # learning_stats=True returns [k, S] stats from the fused run
+    st = engine().run_rounds(params0, sx, sy, counts, None, k,
+                             batch_idx=idx)[3]
+    shapes = {n: tuple(v.shape) for n, v in st.items()}
+    print(f"gate learning stats: {shapes}")
+    gate(shapes.get("station_cos") == (k, n_s)
+          and shapes.get("station_norm") == (k, n_s)
+          and shapes.get("update_norm") == (k,)
+          and all(bool(torch.isfinite(v).all()) for v in st.values()),
+          "learning stats are not [k, S]")
+    torch.cuda.synchronize()
+    check(not failed, "fedavg gates failed: " + "; ".join(failed))
+    return out
+
+
+def phase_profile_fedavg(torch, state):
+    """One traced fused FedAvg round (one replay of the captured graph):
+    the device's busy share and device time by kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, params, opt, sx, sy, counts, gen = state
+    eng.run_rounds(params, sx, sy, counts, gen, 1, opt_state=opt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run_rounds(params, sx, sy, counts, gen, 1,
+                       opt_state=opt)[2].item()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    rows = [r for r in rows if r[0] > 0]
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+
+    def kind(name):
+        low = name.lower()
+        if any(w in low for w in ("philox", "rand", "distribution")):
+            return "RNG (batch-index draws)"
+        if any(w in low for w in ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                                  "implicit", "winograd", "fft")):
+            return "cuDNN convolutions"
+        if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass",
+                                  "gemv", "dot_kernel")):
+            return "GEMMs (dense layers)"
+        if any(w in low for w in ("index", "gather", "scatter")):
+            return "gather/index (batches, loss)"
+        if "memcpy" in low or "memset" in low:
+            return "copies (rows in, losses out)"
+        return "elementwise and reductions"
+
+    groups: dict[str, float] = {}
+    for ms, _, name in rows:
+        groups[kind(name)] = groups.get(kind(name), 0.0) + ms
+    share = busy_ms / wall_ms if wall_ms else 0.0
+    print(f"profiled fused fedavg round: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * share:.1f}%)")
+    for name, ms in sorted(groups.items(), key=lambda x: -x[1]):
+        print(f"  {ms:9.3f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}%  {name}")
+    for ms, n, key in rows[:15]:
+        print(f"  {ms:9.3f} ms {n:6d}x {key[:90]}")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=share,
+                groups=groups,
+                top=[dict(ms=m, count=n, name=k) for m, n, k in rows[:40]])
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -468,6 +787,7 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     kind = torch.cuda.get_device_name(0)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -498,6 +818,19 @@ def main(argv: list[str]) -> int:
               f"{r['tokens_per_s']:.0f} tokens/s, peak "
               f"{r['peak_mem_gb']:.2f} GB on {card}")
     times = phase_times(fa, torch, dev)
+    fedavg, fedavg_state = phase_fedavg(fa, torch, dev)
+    if "--profile" in argv:
+        prof["fedavg"] = phase_profile_fedavg(torch, fedavg_state)
+    del fedavg_state
+    print(f"fedavg-cnn: {fedavg['fused_ms_per_round']:.3f} ms/round fused "
+          f"({fedavg['rounds_per_s']:.1f} rounds/s), "
+          f"{fedavg['eager_ms_per_round']:.3f} ms/round eager, "
+          f"{fedavg['loop_fused_ms_per_round']:.3f} ms/round fused station "
+          f"loop, warm-up {fedavg['capture']['warmup_s']:.3f} s, capture "
+          f"{fedavg['capture']['capture_s']:.3f} s, peak "
+          f"{fedavg['peak_mem_gb']:.3f} GB, final loss "
+          f"{fedavg['final_loss']:.4f}, accuracy {fedavg['accuracy']:.4f} "
+          f"on {card}")
 
     # each kernel in the dtype whose path it serves (the CUDA-core kernel,
     # which serves neither at head dim 128, beside the TF32x3 one in f32)
@@ -509,20 +842,24 @@ def main(argv: list[str]) -> int:
         source="vantage6_tpu_torch/ops/csrc/"
                + _build.SOURCES[fa.KERNELS[variant].library],
         replaces="vantage6_tpu/ops/flash_attention.py:31",
-        launches=sum(r["launches"][variant] for r in slice_res.values()),
+        launches=sum(r["launches"][variant] for r in slice_res.values())
+        + fedavg["launches"][variant],
+        launches_fedavg=fedavg["launches"][variant],
         **{key: times[dtype][variant][key] for key in (
             "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
     ) for variant, (name, dtype) in names.items()]
-    result = dict(card=card, kind=kind, build_s=build_s,
+    result = dict(card=card, kind=kind, torch=torch.__version__,
+                  cuda=torch.version.cuda, build_s=build_s,
                   max_abs_err_cases=max_err_cases, slice=slice_res,
+                  fedavg=fedavg,
                   kernels=kernels, times=times, profile=prof,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
-    print(json.dumps({"slice": slice_res}))
+    print(json.dumps({"slice": slice_res, "fedavg": fedavg}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

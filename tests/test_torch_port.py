@@ -34,7 +34,8 @@ def test_port_and_chip_smoke_import_without_jax():
     res = subprocess.run([sys.executable, "-c", code, REPO], cwd=REPO,
                          capture_output=True, text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 8
+    # the transformer slice's 11 modules and FedAvg-CNN's 6
+    assert int(res.stdout.strip().splitlines()[-1]) >= 17
 
 
 def test_mesh_without_cuda_requires_explicit_cpu(monkeypatch):
@@ -44,3 +45,13 @@ def test_mesh_without_cuda_requires_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FederationMesh(4)
     assert FederationMesh(4, device="cpu").device.type == "cpu"
+
+
+def test_fedavg_engine_without_cuda_requires_explicit_cpu(monkeypatch):
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        W.make_engine()
+    eng = W.make_engine(n_stations=2, device="cpu")
+    assert eng.device.type == "cpu" and eng.mesh.n_stations == 2

@@ -5,8 +5,11 @@ stacked on a leading station axis (a tensor ``[S, ...]`` holds every
 station's shard), exactly as in the JAX package. On one card the station
 mesh axis collapses: ``station_axis_size == 1`` and every station folds into
 the single slot (``stations_per_slot == S``). ``fed_map`` walks the stations
-with a Python loop, so each station's function runs in isolation; all
-cross-station mixing happens explicitly in ``fed.collectives``.
+with a Python loop, or with ``batched=True`` maps the function over the
+station axis in one call (``torch.func.vmap``, the counterpart of the JAX
+package's vmap inside shard_map). Either way each station's function sees
+only its own slice; all cross-station mixing happens explicitly in
+``fed.collectives``.
 
 Placement is explicit: entry points take a ``device`` and run on CUDA
 unless the caller asks for the CPU. Without a CUDA device and without an
@@ -95,12 +98,22 @@ class FederationMesh:
         fn: Callable[..., Any],
         *stacked_args: Any,
         replicated_args: tuple[Any, ...] = (),
+        batched: bool = False,
     ) -> Any:
         """Run ``fn`` once per station; return stacked ``[S, ...]`` outputs.
 
         ``stacked_args`` are pytrees whose leaves carry a leading station
         axis of size S; ``replicated_args`` are passed to every station
-        unchanged (e.g. the global model)."""
+        unchanged (e.g. the global model). ``batched=True`` runs ``fn`` once
+        under ``torch.func.vmap`` over the station axis (per-station weights
+        become batched kernels, e.g. a grouped convolution) instead of S
+        times in a loop; ``fn`` must then be vmap-able (no data-dependent
+        Python control flow, no in-place writes to its inputs)."""
+        if batched:
+            in_dims = ((0,) * len(stacked_args)
+                       + (None,) * len(replicated_args))
+            return torch.func.vmap(fn, in_dims=in_dims)(*stacked_args,
+                                                        *replicated_args)
         outs = []
         for s in range(self.n_stations):
             s_args = [tree_map(lambda x: x[s], a) for a in stacked_args]

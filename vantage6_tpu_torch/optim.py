@@ -1,10 +1,17 @@
-"""Functional Adam with the state and arithmetic of ``optax.adam(lr)``.
+"""Functional server optimizers with optax's state and arithmetic.
 
-The JAX transformer engine steps its server model with ``optax.adam``; this
-is the same transform on tensor pytrees: ``b1=0.9``, ``b2=0.999``,
-``eps=1e-8``, ``eps_root=0``, state ``(count, mu, nu)``, and the update
-``-lr * mu_hat / (sqrt(nu_hat) + eps)`` with the bias
-corrections ``1 - b**count`` taken in float32.
+``adam(lr)`` is ``optax.adam(lr)`` on tensor pytrees: ``b1=0.9``,
+``b2=0.999``, ``eps=1e-8``, ``eps_root=0``, state ``(count, mu, nu)``, and
+the update ``-lr * mu_hat / (sqrt(nu_hat) + eps)`` with the bias
+corrections ``1 - b**count`` taken in float32. The JAX transformer engine
+steps its model with it, and FedAdam its server model.
+
+``sgd(lr)`` is ``optax.sgd(lr)`` without momentum: no state, the update
+``-lr * g``. ``sgd(1.0)`` on the negative mean delta is plain FedAvg.
+
+Adam's ``count`` is a Python int (the bias corrections are computed on the
+host) or a 0-d integer tensor (computed on the device, so a round captured
+as a CUDA graph reads the count each replay instead of baking it in).
 """
 from __future__ import annotations
 
@@ -44,13 +51,20 @@ class Adam:
         nu = tree_map(lambda g, t: (1 - B2) * g**2 + B2 * t, grads, state.nu)
         count = state.count + 1
         # 1 - decay**count in float32, as optax computes it
-        c1 = float(np.float32(1) - np.float32(B1) ** np.float32(count))
-        c2 = float(np.float32(1) - np.float32(B2) ** np.float32(count))
+        if isinstance(count, torch.Tensor):
+            n = count.to(torch.float32)
+            c1 = 1 - torch.pow(torch.full_like(n, B1), n)
+            c2 = 1 - torch.pow(torch.full_like(n, B2), n)
+        else:
+            c1 = torch.tensor(
+                float(np.float32(1) - np.float32(B1) ** np.float32(count)))
+            c2 = torch.tensor(
+                float(np.float32(1) - np.float32(B2) ** np.float32(count)))
         neg_lr = -float(np.float32(self.lr))
 
         def step(m, v):
-            m_hat = m / torch.tensor(c1, dtype=m.dtype)
-            v_hat = v / torch.tensor(c2, dtype=v.dtype)
+            m_hat = m / c1.to(m.dtype)
+            v_hat = v / c2.to(v.dtype)
             u = m_hat / (torch.sqrt(v_hat) + EPS)
             return torch.tensor(neg_lr, dtype=u.dtype) * u
 
@@ -60,6 +74,26 @@ class Adam:
 def adam(lr: float) -> Adam:
     """``optax.adam(lr)`` with its defaults."""
     return Adam(lr=lr)
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    lr: float
+
+    def init(self, params: Any) -> tuple:
+        del params
+        return ()
+
+    def update(self, grads: Any, state: tuple,
+               params: Any = None) -> tuple[Any, tuple]:
+        del params
+        neg_lr = -float(np.float32(self.lr))
+        return tree_map(lambda g: g * neg_lr, grads), state
+
+
+def sgd(lr: float) -> SGD:
+    """``optax.sgd(lr)`` with its defaults (no momentum)."""
+    return SGD(lr=lr)
 
 
 def apply_updates(params: Any, updates: Any) -> Any:

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from vantage6_tpu_torch._tree import tree_leaves, tree_map
+from vantage6_tpu_torch._tree import tree_leaves, tree_map, tree_unflatten
 from vantage6_tpu_torch.core.mesh import FederationMesh
 from vantage6_tpu_torch.fed import collectives
 from vantage6_tpu_torch.ops.flash_attention import (
@@ -206,7 +206,7 @@ class FedTransformer:
             leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
             loss = loss_local(leaves, tok, self.cfg)
             grads = torch.autograd.grad(loss, tree_leaves(leaves))
-            return loss.detach(), _unflatten(params, list(grads))
+            return loss.detach(), tree_unflatten(params, list(grads))
 
         return self.mesh.fed_map(one_station, tokens,
                                  replicated_args=(params,))
@@ -227,11 +227,6 @@ class FedTransformer:
         params = apply_updates(params, updates)
         loss = collectives.fed_mean(losses, mask=mask)
         return params, opt_state, loss
-
-
-def _unflatten(like: Any, leaves: list[torch.Tensor]) -> Any:
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), like)
 
 
 def make_engine(
