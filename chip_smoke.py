@@ -41,11 +41,11 @@ Phases, each of which raises (exit code 1) on failure:
    ``init_params``/``init``/``run_rounds``: a fresh 5-round run whose
    loss must fall and whose accuracy on the held-out set must pass 0.2;
    the warm-up and capture time of the CUDA graph, ms/round of the fused
-   run (median of 3), of ``round()`` driven eagerly and of the fused
-   station loop (the form without vmap), peak memory; no flash kernel may
-   launch. Then the identities, with cuDNN's deterministic algorithms:
-   fused == eager rounds from the same state and indices (exactly), the
-   vmap step == the station loop (bf16 tolerance), a masked round ==
+   run (median of 3) and of ``round()`` driven eagerly, peak memory; no
+   flash kernel may launch. Then the identities, with cuDNN's
+   deterministic algorithms: fused == eager rounds from the same state and
+   indices (exactly), a round (stations under vmap) == the mean of the
+   stations' deltas taken one by one (bf16 tolerance), a masked round ==
    ``fed_mean`` over the other stations, ``async_round`` ==
    ``round(mask=accept * discount**staleness)`` (exactly), and
    ``learning_stats=True`` gives ``[5, 32]`` stats.
@@ -575,11 +575,6 @@ def phase_fedavg(fa, torch, dev):
     check(sum(launches.values()) == 0,
           f"the fedavg run launched a flash kernel: {launches}")
 
-    # the station loop instead of vmap, captured and timed the same way
-    loop = engine(learning_stats=False, station_vmap=False)
-    loop.run_rounds(params0, sx, sy, counts, gen, 1, opt_state=opt0)
-    loop_capture = loop.last_capture
-    loop_ms, loop_runs = timed_fused(loop)
     flops = cnn_round_flops(cfg)
     res = dict(
         config=dict(cfg, compute="bfloat16", server="sgd(1.0)"),
@@ -587,21 +582,17 @@ def phase_fedavg(fa, torch, dev):
         final_loss=losses[-1], accuracy=acc,
         fused_ms_per_round=fused_ms, fused_runs_ms=fused_runs,
         rounds_per_s=1e3 / fused_ms, eager_ms_per_round=eager_ms,
-        eager_rounds_ms=eager, loop_fused_ms_per_round=loop_ms,
-        loop_fused_runs_ms=loop_runs, loop_capture=loop_capture,
-        peak_mem_gb=peak_gb, launches=launches,
+        eager_rounds_ms=eager, peak_mem_gb=peak_gb, launches=launches,
         flops_per_round=flops,
         flops_bound_ms=1e3 * flops / PEAK_BF16_FLOPS,
     )
-    for name, c in (("vmap", capture), ("station loop", loop_capture)):
-        print(f"fedavg {name} capture: warm-up {c['warmup_s']:.3f} s "
-              f"({WARMUP_ROUNDS} rounds), capture {c['capture_s']:.3f} s")
+    print(f"fedavg capture: warm-up {capture['warmup_s']:.3f} s "
+          f"({WARMUP_ROUNDS} rounds), capture {capture['capture_s']:.3f} s")
     print(f"fedavg first run (warm-up + capture + {k} rounds): "
           f"{first_s:.3f} s")
-    print(f"fedavg fused (vmap): {fused_ms:.3f} ms/round "
+    print(f"fedavg fused: {fused_ms:.3f} ms/round "
           f"({1e3 / fused_ms:.1f} rounds/s; runs {fused_runs}); eager "
-          f"round(): {eager_ms:.3f} ms/round; fused station loop: "
-          f"{loop_ms:.3f} ms/round; peak {peak_gb:.3f} GB; "
+          f"round(): {eager_ms:.3f} ms/round; peak {peak_gb:.3f} GB; "
           f"{flops / 1e9:.1f} GFLOP/round, bound "
           f"{res['flops_bound_ms']:.4f} ms at the bf16 peak")
 
@@ -652,21 +643,26 @@ def fedavg_gates(torch, engine, params0, sx, sy, counts, gen, k):
     gate(out["fused_vs_eager_params"] == 0 and out["fused_vs_eager_loss"] == 0,
           "fused rounds differ from eager rounds")
 
-    # the batched (vmap) station step == the station loop, one round
+    # a round (stations batched under vmap) == params0 + the mean of the
+    # stations' deltas taken one by one (sgd(1.0)), one round
     a = eng.round(params0, opt0, sx, sy, counts, batch_idx=idx[0])
-    b = engine(learning_stats=False, station_vmap=False).round(
-        params0, opt0, sx, sy, counts, batch_idx=idx[0])
+    with torch.no_grad():
+        deltas, losses = eng.mesh.fed_map(
+            eng._local_update, sx, sy, idx[0], replicated_args=(params0,),
+            batched=False)
+    b = tree_map(torch.add, params0, fed_mean(deltas, weights=counts))
+    b_loss = fed_mean(losses, weights=counts).item()
     step = max((x - y).abs().max().item() for x, y in zip(
         tree_leaves(a[0]), tree_leaves(params0)))
-    out["vmap_vs_loop_params"] = _max_diff(torch, a[0], b[0])
-    # bf16 compute: the grouped convolution sums in another order; 8 bf16
-    # ulps (2^-8) of the round's largest parameter step
+    out["vmap_vs_loop_params"] = _max_diff(torch, a[0], b)
+    # bf16 compute: the batched GEMMs sum in another order; 8 bf16 ulps
+    # (2^-8) of the round's largest parameter step
     lim = 8 * 2.0**-8 * step
     print(f"gate vmap == loop (one round): params max_abs_err "
           f"{out['vmap_vs_loop_params']:.3e} tol {lim:.3e}; loss "
-          f"{a[2].item():.6f} vs {b[2].item():.6f}")
+          f"{a[2].item():.6f} vs {b_loss:.6f}")
     gate(out["vmap_vs_loop_params"] <= lim, "vmap and loop rounds differ")
-    gate(abs(a[2].item() - b[2].item()) <= 2.0**-8 * abs(b[2].item()),
+    gate(abs(a[2].item() - b_loss) <= 2.0**-8 * abs(b_loss),
           "vmap and loop round losses differ")
 
     # one station masked out == fed_mean over the others (sgd(1.0))
@@ -825,8 +821,7 @@ def main(argv: list[str]) -> int:
     print(f"fedavg-cnn: {fedavg['fused_ms_per_round']:.3f} ms/round fused "
           f"({fedavg['rounds_per_s']:.1f} rounds/s), "
           f"{fedavg['eager_ms_per_round']:.3f} ms/round eager, "
-          f"{fedavg['loop_fused_ms_per_round']:.3f} ms/round fused station "
-          f"loop, warm-up {fedavg['capture']['warmup_s']:.3f} s, capture "
+          f"warm-up {fedavg['capture']['warmup_s']:.3f} s, capture "
           f"{fedavg['capture']['capture_s']:.3f} s, peak "
           f"{fedavg['peak_mem_gb']:.3f} GB, final loss "
           f"{fedavg['final_loss']:.4f}, accuracy {fedavg['accuracy']:.4f} "

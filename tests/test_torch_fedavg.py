@@ -16,9 +16,10 @@ import optax
 import pytest
 import torch
 
-from vantage6_tpu_torch._tree import tree_leaves
+from vantage6_tpu_torch._tree import tree_leaves, tree_map
 from vantage6_tpu_torch.core.mesh import FederationMesh
 from vantage6_tpu_torch.fed import fedavg as tf
+from vantage6_tpu_torch.fed.collectives import fed_mean
 from vantage6_tpu_torch.models.cnn import CNN
 from vantage6_tpu_torch.optim import adam, sgd
 from vantage6_tpu_torch.utils.datasets import synthetic_image_classes
@@ -211,7 +212,7 @@ def test_run_rounds_async_matches_jax(data, jax_params):
 def start(data):
     _, (x, y, counts) = data
     eng = _engine(server_optimizer=adam(1e-3))
-    params = W.init_params(3)
+    params = W.init_params(3, device="cpu")
     idx = eng.draw_batch_indices(counts, 4, n_rounds=K)
     return eng, params, (x, y, counts), idx
 
@@ -261,14 +262,40 @@ def test_async_round_is_round_with_discounted_mask(start):
 
 
 def test_batched_stations_equal_the_loop(start):
+    """The round (stations under vmap) == the same round with the stations
+    walked one by one: params + the masked mean of the loop's deltas."""
     _, params, (x, y, counts), idx = start
     eng = _engine()
+    a = eng.round(params, eng.init(params), x, y, counts, mask=MASK,
+                  batch_idx=idx[0])
+    with torch.no_grad():
+        deltas, losses = eng.mesh.fed_map(
+            eng._local_update, x, y, idx[0], replicated_args=(params,),
+            batched=False)
+    weights = counts * torch.from_numpy(MASK)
+    loop = tree_map(torch.add, params, fed_mean(deltas, weights=weights))
+    _close(a[0], jax.tree.map(np.asarray, W.params_to_numpy(loop)), **TOL)
+    np.testing.assert_allclose(float(a[2]),
+                               float(fed_mean(losses, weights=weights)), **TOL)
+
+
+def test_round_moves_its_inputs_to_the_engine(start):
+    """Params and server state given as numpy arrays and Python numbers are
+    placed on the engine's device: the same round as with its tensors."""
+    _, params, (x, y, counts), idx = start
+    eng = _engine(server_optimizer=adam(1e-3))
     state = eng.init(params)
-    loop = _engine(station_vmap=False)
-    a = eng.round(params, state, x, y, counts, mask=MASK, batch_idx=idx[0])
-    b = loop.round(params, state, x, y, counts, mask=MASK, batch_idx=idx[0])
-    _close(a[0], jax.tree.map(np.asarray, W.params_to_numpy(b[0])), **TOL)
-    np.testing.assert_allclose(float(a[2]), float(b[2]), **TOL)
+    a = eng.round(params, state, x, y, counts, batch_idx=idx[0])
+    b = eng.round(W.params_to_numpy(params),
+                  tree_map(lambda v: v.numpy() if v.dim() else int(v), state),
+                  x.numpy(), y.numpy(), counts.numpy(), batch_idx=idx[0])
+    assert all(torch.equal(u, v) for u, v in zip(tree_leaves(a),
+                                                  tree_leaves(b)))
+    p, _, losses, _ = eng.run_rounds(W.params_to_numpy(params), x, y, counts,
+                                     None, 1, batch_idx=idx[0])
+    assert all(torch.equal(u, v) for u, v in zip(tree_leaves(p),
+                                                  tree_leaves(a[0])))
+    assert torch.equal(losses[0], a[2])
 
 
 def test_learning_stats_off_returns_empty(start):
@@ -292,7 +319,7 @@ def test_drawn_batch_indices(data):
     gen = torch.Generator().manual_seed(0)
     assert torch.equal(idx, eng.draw_batch_indices(counts, gen, n_rounds=5))
     # a key draws the same as the indices it would have drawn
-    params = W.init_params(0)
+    params = W.init_params(0, device="cpu")
     state = eng.init(params)
     a = eng.round(params, state, x, y, counts, key=0)
     b = eng.round(params, state, x, y, counts, batch_idx=idx[0])
@@ -303,11 +330,11 @@ def test_contracts():
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         W.make_engine(n_stations=S, device="cpu", compressor=object())
     eng = _engine()
-    assert eng.compression_stats(W.init_params(0)) is None
+    assert eng.compression_stats(W.init_params(0, device="cpu")) is None
     x = torch.zeros(S, 5, 28, 28, 1)
     y = torch.zeros(S, 5, dtype=torch.int32)
     counts = torch.full((S,), 5.0)
-    params = W.init_params(0)
+    params = W.init_params(0, device="cpu")
     with pytest.raises(ValueError, match="pass a key or batch_idx"):
         eng.round(params, eng.init(params), x, y, counts)
     with pytest.raises(ValueError, match="n_rounds must be >= 1"):

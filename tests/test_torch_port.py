@@ -48,6 +48,7 @@ def test_mesh_without_cuda_requires_explicit_cpu(monkeypatch):
 
 
 def test_fedavg_engine_without_cuda_requires_explicit_cpu(monkeypatch):
+    from vantage6_tpu_torch._tree import tree_leaves
     from vantage6_tpu_torch.workloads import fedavg_mnist as W
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -55,3 +56,7 @@ def test_fedavg_engine_without_cuda_requires_explicit_cpu(monkeypatch):
         W.make_engine()
     eng = W.make_engine(n_stations=2, device="cpu")
     assert eng.device.type == "cpu" and eng.mesh.n_stations == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        W.init_params(0)
+    params = W.init_params(0, device="cpu")
+    assert all(p.device.type == "cpu" for p in tree_leaves(params))

@@ -2,10 +2,10 @@
 
 Counterpart of ``vantage6_tpu/fed/fedavg.py``. A round runs each station's
 ``local_steps`` of minibatch SGD from the global params (station-batched
-through ``FederationMesh.fed_map(batched=True)``, or a loop over stations),
-aggregates the per-station deltas with the count-weighted, masked
-``fed_mean``, and steps the server model with the server optimizer on the
-pseudo-gradient (``sgd(1.0)`` by default, which is plain FedAvg).
+through ``FederationMesh.fed_map(batched=True)``), aggregates the
+per-station deltas with the count-weighted, masked ``fed_mean``, and steps
+the server model with the server optimizer on the pseudo-gradient
+(``sgd(1.0)`` by default, which is plain FedAvg).
 
 ``run_rounds`` is the fused path. The JAX package folds K rounds into one
 ``lax.scan`` program; here one round is captured once as a CUDA graph over
@@ -80,8 +80,6 @@ class FedAvgSpec:
     # the JAX package's local-steps scan unroll; the port's local steps are
     # a Python loop, so it has no effect here
     local_unroll: int | bool = 1
-    # stations batched through torch.func.vmap (True) or a loop (False)
-    station_vmap: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,7 +174,7 @@ class FedAvg:
     ):
         deltas, losses = self.mesh.fed_map(
             self._local_update, stacked_x, stacked_y, idx,
-            replicated_args=(params,), batched=self.spec.station_vmap,
+            replicated_args=(params,), batched=True,
         )
         weights = counts * mask
         stats: dict[str, Any] = {}
@@ -257,6 +255,7 @@ class FedAvg:
         ``shard_server_update`` it is built over the flat padded f32 param
         vector. A step count lives on the device (a 0-d int32 tensor) so a
         captured round reads it on every replay."""
+        params = self._device_params(params)
         if self.spec.shard_server_update:
             flat = flatten_tree(params)
             n_pad = padded_flat_size(flat.numel(), self.mesh.station_axis_size)
@@ -265,10 +264,14 @@ class FedAvg:
             state = self.server_opt.init(params)
         return self._device_state(state)
 
+    def _device_params(self, params: Pytree) -> Pytree:
+        return tree_map(self._place, params)
+
     def _device_state(self, state: Any) -> Any:
+        # a Python int (Adam's step count) becomes a 0-d int32 tensor
         return tree_map(
-            lambda x: x if isinstance(x, torch.Tensor)
-            else torch.tensor(x, dtype=torch.int32, device=self.device),
+            lambda x: torch.tensor(x, dtype=torch.int32, device=self.device)
+            if isinstance(x, int) else self._place(x),
             state,
         )
 
@@ -286,15 +289,17 @@ class FedAvg:
         """One federated round. Returns (params, opt_state, mean_loss,
         stats); ``stats`` is ``station_update_stats``' dict ({} when
         ``spec.learning_stats`` is off). The batch indices come from
-        ``batch_idx`` ([S, local_steps, batch]) or are drawn with ``key``."""
+        ``batch_idx`` ([S, local_steps, batch]) or are drawn with ``key``.
+        Every input is moved to the engine's device first."""
         counts = self._place(counts, torch.float32)
         mask = (torch.ones_like(counts) if mask is None
                 else self._place(mask, torch.float32))
         idx = self._batch_indices(counts, key, batch_idx, 1)[0]
         with torch.no_grad():
             return self._round_impl(
-                params, opt_state, self._place(stacked_x),
-                self._place(stacked_y), counts, mask, idx,
+                self._device_params(params), self._device_state(opt_state),
+                self._place(stacked_x), self._place(stacked_y), counts, mask,
+                idx,
             )
 
     def async_round(
@@ -351,7 +356,7 @@ class FedAvg:
         with ``key``. Returns (params, opt_state, losses[n], stats), the
         stats stacked over rounds ({} when ``spec.learning_stats`` is off).
         Pass ``opt_state`` to continue a run; omitted, a fresh state is
-        made.
+        made. Every input is moved to the engine's device first.
 
         ``donate`` and ``unroll`` keep the JAX package's signature and have
         no effect: the inputs are copied into the graph's own buffers and
@@ -364,6 +369,7 @@ class FedAvg:
                 self._place(mask), n_rounds)),
             "idx": self._batch_indices(counts, key, batch_idx, n_rounds),
         }
+        params = self._device_params(params)
         if opt_state is None:
             opt_state = self.init(params)
         carry = {"params": params, "opt_state": self._device_state(opt_state)}
@@ -405,6 +411,7 @@ class FedAvg:
                 self._place(accept_masks), n_rounds)),
             "idx": self._batch_indices(counts, key, batch_idx, n_rounds),
         }
+        params = self._device_params(params)
         if opt_state is None:
             opt_state = self.init(params)
         carry = {

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from vantage6_tpu_torch._tree import tree_map
-from vantage6_tpu_torch.core.mesh import FederationMesh
+from vantage6_tpu_torch.core.mesh import FederationMesh, resolve_device
 from vantage6_tpu_torch.fed.fedavg import FedAvg, FedAvgSpec
 from vantage6_tpu_torch.models.cnn import CNN, accuracy
 from vantage6_tpu_torch.utils.datasets import (
@@ -41,9 +41,12 @@ def weighted_ce_loss(params, bx, by, w):
 
 def init_params(generator: torch.Generator | int,
                 image_shape: tuple[int, int, int] = (28, 28, 1),
-                device: str | torch.device = "cpu") -> Any:
-    """The CNN's float32 parameters from ``generator`` (or a seed), with
-    flax's default initialisers, on ``device``."""
+                device: str | torch.device | None = None) -> Any:
+    """The CNN's float32 parameters from ``generator`` (a CPU generator, or
+    a seed), with flax's default initialisers, on ``device`` (CUDA unless
+    ``"cpu"`` is asked for). The draws are made on the CPU, so a seed gives
+    the same weights on every device."""
+    device = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator().manual_seed(generator)
     return tree_map(lambda x: x.to(device),
@@ -75,7 +78,6 @@ def make_engine(
     compressor: Any = None,
     learning_stats: bool = True,
     local_unroll: int | bool = 1,
-    station_vmap: bool = True,
     n_stations: int = 32,
     device: str | torch.device | None = None,
 ) -> FedAvg:
@@ -96,7 +98,6 @@ def make_engine(
             compressor=compressor,
             learning_stats=learning_stats,
             local_unroll=local_unroll,
-            station_vmap=station_vmap,
         ),
     )
 
