@@ -50,10 +50,39 @@ Phases, each of which raises (exit code 1) on failure:
    ``round(mask=accept * discount**staleness)`` (exactly), and
    ``learning_stats=True`` gives ``[5, 32]`` stats.
 
+7. gradient compression on the flagship config of phase 6: a dense arm
+   and a ``CompressorSpec(topk_ratio=0.1, int8=True)`` arm from one init,
+   each a fresh 5-round fused run (accuracy on phase 6's held-out set,
+   warm-up and capture seconds, peak memory) and fused ms/round (median
+   of 3 chained runs); the on-wire reduction from ``compression_stats``
+   (at least 4x), the accuracy gap (at most 0.08, bench.py's compression
+   leg) and the compressed accuracy (above 0.2); one ``compress_stacked``
+   call at ``[32, 421642]`` timed; then, with cuDNN deterministic:
+   ``new_ef == acc - hat`` and ``decompress_flat(payload) == hat``
+   exactly for one round on the card, a masked station's EF row
+   unchanged, 5 fused rounds == 5 eager rounds from generators of one
+   seed, and an identity spec and ``topk_ratio=1.0`` equal to dense,
+   all exactly; no flash kernel may launch;
+8. the analysis programs at a registry's size, each held on the host to
+   a float64 numpy oracle with its tolerance, ms per call (median of 3,
+   synchronised) and peak memory: correlation (f32, 32 stations x 65,536
+   rows x 16 features, ragged) against ``np.corrcoef``; GLM (float64,
+   the same rows with an intercept) for gaussian, binomial and poisson
+   against numpy IRLS; crosstab (12 x 8 categories, ``min_cell_count``
+   5) against exact pooled counts and the poisoning rule; quantiles 0.5
+   and 0.95 (64 bisection steps) against the pooled rank value; vertical
+   logistic regression (4 stations x 262,144 rows x 16 features, 100
+   iterations) against numpy pooled gradient descent; ``secure_fed_mean``
+   over one round's flagship CNN deltas (masks cancel exactly, within
+   quantization error of ``fed_mean``) and over ``[32, 4096]`` KM-sized
+   counts (exact), and the pair masks' Philox-4x32-10 against its
+   published known answer on the card; no flash kernel may launch.
+
 ``--profile`` traces one more round of each run of phase 4
 (torch.profiler) and reports device time by kernel group and under the
-``attention_fwd``/``attention_bwd`` profiler ranges, and one fused round of
-phase 6 with the device's busy share.
+``attention_fwd``/``attention_bwd`` profiler ranges, one fused round of
+phases 6 and 7 (dense and compressed) with the device's busy share, and
+one call of each analysis program of phase 8 (kernel time, launches).
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}`` line
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -69,6 +98,8 @@ import re
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -138,6 +169,42 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def median_ms(torch, fn, runs: int = 3, warmup: int = 1, per: int = 1):
+    """(median ms, all ms, the last result) of ``runs`` calls of ``fn``
+    after ``warmup`` untimed calls, each between two synchronisations, on
+    the host clock, divided by ``per`` (the rounds one call runs)."""
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0) / per)
+    return sorted(out)[runs // 2], out, result
+
+
+def trace_device(torch, fn):
+    """One call of ``fn`` under the profiler: (its wall ms, to a
+    synchronisation, and the device's kernels as (ms, launches, name),
+    the longest first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    return wall_ms, sorted(rows, reverse=True)
 
 
 def attention_bound(b, h, t_q, t_k, d, q_offset, k_offset, causal,
@@ -546,30 +613,23 @@ def phase_fedavg(fa, torch, dev):
     check(acc > FEDAVG_MIN_ACCURACY, f"fedavg accuracy {acc} <= "
           f"{FEDAVG_MIN_ACCURACY}")
 
-    def timed_fused(e):
-        """ms per round: median over timed runs of k replayed rounds, each
-        run chained from the last and ended by a host pull."""
-        p, o = params, opt
-        runs = []
-        for _ in range(cfg["timed_runs"]):
-            sync()
-            t0 = time.perf_counter()
-            p, o, ls, _ = e.run_rounds(p, sx, sy, counts, gen, k,
-                                       opt_state=o)
-            ls[-1].item()
-            runs.append(1e3 * (time.perf_counter() - t0) / k)
-        return sorted(runs)[len(runs) // 2], runs
+    # ms per round: the median over timed runs of k replayed rounds, each
+    # run chained from the last
+    state = [params, opt]
 
-    fused_ms, fused_runs = timed_fused(eng)
-    eager = []
-    p, o = params, opt
-    for _ in range(k + 1):
-        sync()
-        t0 = time.perf_counter()
-        p, o, loss, _ = eng.round(p, o, sx, sy, counts, gen)
-        loss.item()
-        eager.append(1e3 * (time.perf_counter() - t0))
-    eager_ms = sorted(eager[1:])[len(eager[1:]) // 2]  # the first sets up
+    def fused_run():
+        state[:] = eng.run_rounds(*state[:1], sx, sy, counts, gen, k,
+                                  opt_state=state[1])[:2]
+
+    fused_ms, fused_runs, _ = median_ms(torch, fused_run, cfg["timed_runs"],
+                                        warmup=0, per=k)
+    state = [params, opt]
+
+    def eager_round():
+        state[:] = eng.round(*state, sx, sy, counts, gen)[:2]
+
+    # k chained rounds after one that sets up
+    eager_ms, eager, _ = median_ms(torch, eager_round, k)
     launches = dict(fa.flash_forward_cuda.variant_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(sum(launches.values()) == 0,
@@ -716,31 +776,21 @@ def fedavg_gates(torch, engine, params0, sx, sy, counts, gen, k):
     return out
 
 
-def phase_profile_fedavg(torch, state):
+def phase_profile_fedavg(torch, state, label="fedavg"):
     """One traced fused FedAvg round (one replay of the captured graph):
     the device's busy share and device time by kernel group."""
-    from torch.profiler import ProfilerActivity, profile
-
     eng, params, opt, sx, sy, counts, gen = state
     eng.run_rounds(params, sx, sy, counts, gen, 1, opt_state=opt)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.run_rounds(params, sx, sy, counts, gen, 1,
-                       opt_state=opt)[2].item()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
-            for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA]
-    rows = [r for r in rows if r[0] > 0]
-    rows.sort(reverse=True)
+    wall_ms, rows = trace_device(torch, lambda: eng.run_rounds(
+        params, sx, sy, counts, gen, 1, opt_state=opt))
     busy_ms = sum(r[0] for r in rows)
 
     def kind(name):
         low = name.lower()
+        if any(w in low for w in ("sort", "radix", "onesweep")):
+            return "sort (top-k)"
         if any(w in low for w in ("philox", "rand", "distribution")):
-            return "RNG (batch-index draws)"
+            return "RNG (draws)"
         if any(w in low for w in ("conv", "cudnn", "fprop", "dgrad", "wgrad",
                                   "implicit", "winograd", "fft")):
             return "cuDNN convolutions"
@@ -748,7 +798,7 @@ def phase_profile_fedavg(torch, state):
                                   "gemv", "dot_kernel")):
             return "GEMMs (dense layers)"
         if any(w in low for w in ("index", "gather", "scatter")):
-            return "gather/index (batches, loss)"
+            return "gather/scatter/index"
         if "memcpy" in low or "memset" in low:
             return "copies (rows in, losses out)"
         return "elementwise and reductions"
@@ -757,7 +807,7 @@ def phase_profile_fedavg(torch, state):
     for ms, _, name in rows:
         groups[kind(name)] = groups.get(kind(name), 0.0) + ms
     share = busy_ms / wall_ms if wall_ms else 0.0
-    print(f"profiled fused fedavg round: wall {wall_ms:.3f} ms, device busy "
+    print(f"profiled fused {label} round: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * share:.1f}%)")
     for name, ms in sorted(groups.items(), key=lambda x: -x[1]):
         print(f"  {ms:9.3f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}%  {name}")
@@ -766,6 +816,489 @@ def phase_profile_fedavg(torch, state):
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, busy_share=share,
                 groups=groups,
                 top=[dict(ms=m, count=n, name=k) for m, n, k in rows[:40]])
+
+
+# ------------------------------------------------- phase 7: compression
+# bench.py's compression leg (worker_compression): top-k 10% + int8 on the
+# flagship config; it accepts at least 4x on-wire reduction and an accuracy
+# gap of at most 0.08 (bench.py:197-198)
+COMPRESSOR = dict(topk_ratio=0.1, int8=True)
+MIN_REDUCTION = 4.0
+MAX_ACCURACY_GAP = 0.08
+
+
+def _fedavg_arm(torch, eng, params0, data, k, ex, ey):
+    """A fresh k-round fused run from ``params0`` (warm-up, capture, k
+    replays), then 3 chained timed runs of k rounds: figures of one arm."""
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    sx, sy, counts = data
+    gen = torch.Generator(device=eng.device).manual_seed(2)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, o, losses, _ = eng.run_rounds(params0, sx, sy, counts, gen, k)
+    losses = losses.tolist()
+    first_s = time.perf_counter() - t0
+    check(eng.last_capture is not None, "run_rounds captured no CUDA graph")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"non-finite loss {losses}")
+    acc = W.evaluate(p, ex, ey)
+    state = [p, o]
+
+    def fused_run():
+        state[:] = eng.run_rounds(*state[:1], sx, sy, counts, gen, k,
+                                  opt_state=state[1])[:2]
+
+    ms, runs, _ = median_ms(torch, fused_run, FEDAVG["timed_runs"], warmup=0,
+                            per=k)
+    return dict(losses=losses, accuracy=acc, first_run_s=first_s,
+                capture=dict(eng.last_capture), fused_ms_per_round=ms,
+                fused_runs_ms=runs, rounds_per_s=1e3 / ms,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9), (p, o)
+
+
+def phase_compression(fa, torch, dev, data):
+    """Phase 7: the flagship config with and without compression from one
+    init, the on-wire reduction, one compress_stacked call timed, and the
+    error-feedback identities."""
+    from vantage6_tpu_torch.fed.compression import CompressorSpec, \
+        compress_stacked
+    from vantage6_tpu_torch.utils.datasets import synthetic_image_classes
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    cfg = FEDAVG
+    k, n_s = cfg["rounds"], cfg["stations"]
+    spec = CompressorSpec(**COMPRESSOR)
+
+    def engine(**kw):
+        return W.make_engine(n_stations=n_s, device=dev,
+                             local_steps=cfg["local_steps"],
+                             batch_size=cfg["batch"], local_lr=cfg["lr"],
+                             learning_stats=False, **kw)
+
+    params0 = W.init_params(1, device=dev)
+    ex, ey = synthetic_image_classes(FEDAVG_EVAL["n"], seed=FEDAVG_EVAL["seed"],
+                                     noise=FEDAVG_EVAL["noise"])
+    # this phase's counts start here
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    comp_eng = engine(compressor=spec)
+    arms, states = {}, {}
+    for name, eng in (("dense", engine()), ("compressed", comp_eng)):
+        arms[name], states[name] = _fedavg_arm(torch, eng, params0, data, k,
+                                               ex, ey)
+        a = arms[name]
+        print(f"compression arm {name}: fused {a['fused_ms_per_round']:.3f} "
+              f"ms/round ({a['rounds_per_s']:.1f} rounds/s; runs "
+              f"{a['fused_runs_ms']}), warm-up "
+              f"{a['capture']['warmup_s']:.3f} s, capture "
+              f"{a['capture']['capture_s']:.3f} s, first run "
+              f"{a['first_run_s']:.3f} s, peak {a['peak_mem_gb']:.3f} GB, "
+              f"losses {[round(x, 4) for x in a['losses']]}, accuracy "
+              f"{a['accuracy']:.4f}")
+    wire = comp_eng.compression_stats(params0)
+    gap = abs(arms["dense"]["accuracy"] - arms["compressed"]["accuracy"])
+    print(f"compression wire: {wire}; accuracy gap {gap:.4f} (at most "
+          f"{MAX_ACCURACY_GAP})")
+
+    # one compress_stacked call at the flagship's [S, N]
+    n = wire["n_params"]
+    g = torch.Generator(device=dev).manual_seed(4)
+    flat = 1e-3 * torch.randn(n_s, n, generator=g, device=dev)
+    ef = 1e-4 * torch.randn(n_s, n, generator=g, device=dev)
+    stacked_ms = cuda_ms(lambda: compress_stacked(spec, flat, ef, g), 10)
+    print(f"compress_stacked [{n_s}, {n}] topk 0.1 + int8: {stacked_ms:.4f} "
+          f"ms per call (CUDA events, mean of 10)")
+    del flat, ef
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gates = compression_gates(torch, engine, spec, params0,
+                                  states["compressed"], data, k)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = dict(fa.flash_forward_cuda.variant_launches)
+    check(sum(launches.values()) == 0,
+          f"the compression runs launched a flash kernel: {launches}")
+    check(wire["reduction"] >= MIN_REDUCTION,
+          f"on-wire reduction {wire['reduction']} < {MIN_REDUCTION}")
+    check(gap <= MAX_ACCURACY_GAP, f"accuracy gap {gap} > {MAX_ACCURACY_GAP}")
+    check(arms["compressed"]["accuracy"] > FEDAVG_MIN_ACCURACY,
+          f"compressed accuracy <= {FEDAVG_MIN_ACCURACY}")
+    res = dict(config=dict(cfg, compressor=COMPRESSOR), arms=arms,
+               wire=wire, accuracy_gap=gap,
+               compress_stacked_ms=stacked_ms, compress_stacked_shape=[
+                   n_s, n], gates=gates, launches=launches)
+    p, o = states["compressed"]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    return res, (comp_eng, p, o, *data, gen)
+
+
+def compression_gates(torch, engine, spec, params0, state, data, k):
+    """The error-feedback identities on the card; raises naming each that
+    does not hold."""
+    from vantage6_tpu_torch._tree import tree_leaves
+    from vantage6_tpu_torch.fed.collectives import flatten_stacked
+    from vantage6_tpu_torch.fed.compression import (
+        CompressorSpec, compress_stacked, decompress_flat, draw_noise,
+        noise_size)
+
+    sx, sy, counts = data
+    n_s = counts.shape[0]
+    failed, out = [], {}
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a), tree_leaves(b), strict=True))
+
+    eng = engine(compressor=spec)
+    params, opt = state  # after the compressed arm's first 5 rounds
+    g = torch.Generator(device=eng.device).manual_seed(5)
+    idx = eng.draw_batch_indices(counts, g, 1)[0]
+    n = opt["ef"].shape[1]
+    u = draw_noise(g, (n_s, noise_size(spec, n)), eng.device)
+
+    # one round: new_ef == acc - hat exactly, decompress(payload) == hat,
+    # and the engine's round carries exactly that accumulator
+    with torch.no_grad():
+        deltas, _ = eng.mesh.fed_map(eng._local_update, sx, sy, idx,
+                                     replicated_args=(params,), batched=True)
+    flat = flatten_stacked(deltas)
+    payload, hat, new_ef = compress_stacked(spec, flat, opt["ef"], None,
+                                            noise=u)
+    acc = flat + opt["ef"]
+    out["ef_identity"] = torch.equal(new_ef, acc - hat)
+    out["decompress_is_hat"] = torch.equal(
+        decompress_flat(spec, payload, n), hat)
+    _, o1, _, _ = eng.round(params, opt, sx, sy, counts, batch_idx=idx,
+                            noise=u)
+    out["round_ef_is_acc_minus_hat"] = torch.equal(o1["ef"], new_ef)
+    out["survivors_per_station"] = int(payload["indices"].shape[1])
+    print(f"gate new_ef == acc - hat (one round, [{n_s}, {n}]): "
+          f"{out['ef_identity']}; decompress == hat: "
+          f"{out['decompress_is_hat']}; the round's EF equal: "
+          f"{out['round_ef_is_acc_minus_hat']}; survivors "
+          f"{out['survivors_per_station']} of {n} (tolerance 0)")
+    gate(out["ef_identity"], "new_ef != acc - hat")
+    gate(out["decompress_is_hat"], "decompress_flat(payload) != hat")
+    gate(out["round_ef_is_acc_minus_hat"], "the round's EF != acc - hat")
+
+    # a masked station's EF row waits; the others move
+    drop = n_s // 2
+    mask = torch.ones_like(counts)
+    mask[drop] = 0
+    _, o2, _, _ = eng.round(params, opt, sx, sy, counts, mask=mask,
+                            batch_idx=idx, noise=u)
+    moved = [s for s in range(n_s)
+             if not torch.equal(o2["ef"][s], opt["ef"][s])]
+    out["masked_ef_unchanged"] = drop not in moved
+    out["rows_moved"] = len(moved)
+    print(f"gate masked station {drop}'s EF row unchanged: "
+          f"{out['masked_ef_unchanged']}; rows moved {len(moved)} of {n_s}")
+    gate(out["masked_ef_unchanged"] and len(moved) == n_s - 1,
+         "a masked station's EF row moved")
+
+    # k fused rounds == k eager rounds from generators of one seed (each
+    # round draws its indices, then its noise)
+    p_f, o_f, l_f, _ = eng.run_rounds(
+        params0, sx, sy, counts,
+        torch.Generator(device=eng.device).manual_seed(9), k)
+    q, r, l_e = params0, eng.init(params0), []
+    ge = torch.Generator(device=eng.device).manual_seed(9)
+    for _ in range(k):
+        q, r, loss, _ = eng.round(q, r, sx, sy, counts, key=ge)
+        l_e.append(loss)
+    out["fused_equals_eager"] = same((p_f, o_f), (q, r)) and torch.equal(
+        l_f, torch.stack(l_e))
+    print(f"gate fused == eager ({k} rounds, one generator seed): "
+          f"{out['fused_equals_eager']} (tolerance 0)")
+    gate(out["fused_equals_eager"], "compressed fused rounds differ from "
+         "eager rounds")
+
+    # an identity spec and lossless top-k give the dense params exactly
+    idx_k = eng.draw_batch_indices(counts, g, k)
+    dense = engine().run_rounds(params0, sx, sy, counts, None, k,
+                                batch_idx=idx_k)
+    for name, s in (("identity", CompressorSpec()),
+                    ("topk_1.0", CompressorSpec(topk_ratio=1.0))):
+        got = engine(compressor=s).run_rounds(params0, sx, sy, counts, None,
+                                              k, batch_idx=idx_k)
+        out[f"{name}_equals_dense"] = same(got[0], dense[0]) and \
+            torch.equal(got[2], dense[2])
+        print(f"gate {name} spec == dense ({k} rounds): "
+              f"{out[f'{name}_equals_dense']} (tolerance 0)")
+        gate(out[f"{name}_equals_dense"], f"the {name} spec differs from "
+             "dense")
+    torch.cuda.synchronize()
+    check(not failed, "compression gates failed: " + "; ".join(failed))
+    return out
+
+
+# ---------------------------------------------- phase 8: analysis programs
+# a hospital registry's size: 32 stations of up to 65,536 patients (ragged,
+# padded); vertical LR over 4 stations of 262,144 shared patients
+ANALYSIS = dict(stations=32, rows=65536, features=16, row_cats=12,
+                col_cats=8, min_cell_count=5, quantiles=(0.5, 0.95),
+                bisection_steps=64, glm_iter=25, vertical_stations=4,
+                vertical_rows=262144, vertical_iter=100, vertical_lr=1.0,
+                km_points=4096, seed=0)
+# f32 correlation of 2M rows against np.corrcoef in float64: the moment
+# sums carry ~1e-7 relative error each, and o/n - mean^2 cancels the
+# means (0.5 against variances near 1)
+CORR_ATOL = 1e-4
+# float64 IRLS on the card against float64 IRLS in numpy, both converged;
+# the 1e-8 jitter on X'WX (~1e6 here) moves beta by ~1e-14
+GLM_RTOL, GLM_ATOL = 1e-7, 1e-9
+# 100 f32 GD steps against float64 GD; each step's gradient is an f32
+# sum over 262,144 rows
+VERTICAL_ATOL = 2e-4
+
+
+# Philox-4x32-10 of the zero counter under the zero key (Random123's
+# known-answer vectors)
+PHILOX_KAT = [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+
+
+def _ragged(rng, cfg, torch, dev):
+    """Per-station counts and the [S, n_max] row mask (f32, on the card)."""
+    s, n = cfg["stations"], cfg["rows"]
+    counts = rng.integers(n * 3 // 4, n + 1, size=s)
+    counts[0] = n
+    mask = (np.arange(n)[None, :] < counts[:, None]).astype(np.float32)
+    return counts, mask, torch.from_numpy(mask).to(dev)
+
+
+def phase_analysis(fa, torch, dev, fedavg_state, profile=False):
+    """Phase 8: every analysis program at a registry's size, each held to
+    its numpy float64 oracle, with ms per call and peak memory; with
+    ``profile``, one traced call of each (the device's busy share)."""
+    from vantage6_tpu_torch._tree import tree_leaves
+    from vantage6_tpu_torch.core.mesh import FederationMesh
+    from vantage6_tpu_torch.fed import collectives as C
+    from vantage6_tpu_torch.workloads import glm, quantiles, stats, vertical
+
+    cfg = ANALYSIS
+    rng = np.random.default_rng(cfg["seed"])
+    n_s, n, p = cfg["stations"], cfg["rows"], cfg["features"]
+    mesh = FederationMesh(n_s, device=dev)
+    counts, mask_np, mask = _ragged(rng, cfg, torch, dev)
+    keep = mask_np.astype(bool)
+    res = {}
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+
+    def timed(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        ms, runs, result = median_ms(torch, fn)
+        res[name] = dict(ms=ms, runs_ms=runs,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if profile:
+            wall_ms, rows = trace_device(torch, fn)
+            busy_ms = sum(r[0] for r in rows)
+            # busy time over the untraced call: the profiler slows the host
+            res[name]["profile"] = dict(
+                traced_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                launches=sum(r[1] for r in rows),
+                busy_share_untraced=busy_ms / ms)
+        return result
+
+    # correlation: correlated features with nonzero means
+    mix = rng.normal(size=(p, p)) / np.sqrt(p) + np.eye(p)
+    x = (rng.standard_normal((n_s, n, p)) @ mix + 0.5).astype(np.float32)
+    x[~keep] = 0.0
+    sx = torch.from_numpy(x).to(dev)
+    corr = timed("correlation", lambda: stats.correlation_device(
+        mesh, sx, mask)).cpu().numpy()
+    ref = np.corrcoef(x[keep].astype(np.float64).T)
+    err = float(np.abs(corr - ref).max())
+    res["correlation"].update(max_abs_err=err, tol=CORR_ATOL,
+                              shape=[n_s, n, p], rows=int(keep.sum()))
+    check(err <= CORR_ATOL, f"correlation off np.corrcoef by {err}")
+
+    # GLM in float64 on the card: intercept + p features
+    design = np.concatenate([np.ones((n_s, n, 1)), x.astype(np.float64)],
+                            axis=2)
+    design[~keep] = 0.0
+    sx64 = torch.from_numpy(design).to(dev)
+    beta_true = rng.normal(size=p + 1) * 0.1
+    eta = design @ beta_true
+    labels = {
+        "gaussian": eta + rng.normal(0, 0.5, eta.shape),
+        "binomial": (rng.uniform(size=eta.shape)
+                     < 1 / (1 + np.exp(-eta))).astype(np.float64),
+        "poisson": rng.poisson(np.exp(eta)).astype(np.float64),
+    }
+    pooled_x = design[keep]
+    for family, y in labels.items():
+        y[~keep] = 0.0
+        sy = torch.from_numpy(y).to(dev)
+        m64 = mask.to(torch.float64)
+        out = timed(f"glm_{family}", lambda: glm.fit_glm_device(
+            mesh, sx64, sy, m64, family, n_iter=cfg["glm_iter"]))
+        beta = out["beta"].cpu().numpy()
+        ref = _numpy_irls(family, pooled_x, y[keep])
+        err = float(np.abs(beta - ref).max())
+        ok = np.allclose(beta, ref, rtol=GLM_RTOL, atol=GLM_ATOL)
+        res[f"glm_{family}"].update(
+            max_abs_err=err, rtol=GLM_RTOL, atol=GLM_ATOL,
+            last_delta=float(out["deltas"][-1]), dtype="float64",
+            shape=[n_s, n, p + 1])
+        check(ok, f"glm {family} off numpy IRLS by {err}")
+    del sx64, design
+
+    # crosstab: skewed categories, so rare cells fall under the threshold
+    r_p = rng.dirichlet(np.full(cfg["row_cats"], 0.5))
+    c_p = rng.dirichlet(np.full(cfg["col_cats"], 0.5))
+    rc = rng.choice(cfg["row_cats"], size=(n_s, n), p=r_p).astype(np.int32)
+    cc = rng.choice(cfg["col_cats"], size=(n_s, n), p=c_p).astype(np.int32)
+    rc[~keep] = 0
+    cc[~keep] = 0
+    rct, cct = torch.from_numpy(rc).to(dev), torch.from_numpy(cc).to(dev)
+    table = timed("crosstab", lambda: stats.crosstab_device(
+        mesh, rct, cct, mask, cfg["row_cats"], cfg["col_cats"],
+        min_cell_count=cfg["min_cell_count"]))["table"]
+    cells = cfg["row_cats"] * cfg["col_cats"]
+    per = np.stack([np.bincount(rc[s][keep[s]] * cfg["col_cats"]
+                                + cc[s][keep[s]], minlength=cells)
+                    for s in range(n_s)]).reshape(n_s, cfg["row_cats"],
+                                                  cfg["col_cats"])
+    poisoned = ((per > 0) & (per < cfg["min_cell_count"])).any(0)
+    expect = [[None if poisoned[r, c] else int(per[:, r, c].sum())
+               for c in range(cfg["col_cats"])]
+              for r in range(cfg["row_cats"])]
+    res["crosstab"].update(exact=table == expect,
+                           poisoned_cells=int(poisoned.sum()),
+                           shape=[n_s, n], cats=[cfg["row_cats"],
+                                                 cfg["col_cats"]])
+    check(table == expect, "crosstab differs from the pooled counts")
+
+    # quantiles of a lab value (log-normal, f32)
+    v = np.exp(rng.normal(4.0, 0.5, size=(n_s, n))).astype(np.float32)
+    v[~keep] = 0.0
+    vt = torch.from_numpy(v).to(dev)
+    pooled_v = np.sort(v[keep])
+    for q in cfg["quantiles"]:
+        got = timed(f"quantile_{q}", lambda: quantiles.quantile_device(
+            mesh, vt, mask, q=q, n_iter=cfg["bisection_steps"]))
+        rank = float(pooled_v[int(np.ceil(q * len(pooled_v))) - 1])
+        res[f"quantile_{q}"].update(value=got["value"], rank_value=rank,
+                                    n=got["n"], shape=[n_s, n])
+        check(got["value"] == rank and got["n"] == len(pooled_v),
+              f"quantile {q}: {got['value']} != rank value {rank}")
+
+    # vertical LR: 4 stations of p features each over the same patients
+    vs, vn = cfg["vertical_stations"], cfg["vertical_rows"]
+    xv = rng.standard_normal((vs, vn, p)).astype(np.float32)
+    w_true = rng.normal(size=(vs, p)) * 0.3
+    logit = np.einsum("snp,sp->n", xv.astype(np.float64), w_true) - 0.2
+    yv = (rng.uniform(size=vn) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    vmesh = FederationMesh(vs, device=dev)
+    xvt, yvt = torch.from_numpy(xv).to(dev), torch.from_numpy(yv).to(dev)
+    out = timed("vertical", lambda: vertical.fit_vertical_logistic_device(
+        vmesh, xvt, yvt, n_iter=cfg["vertical_iter"],
+        lr=cfg["vertical_lr"]))
+    xcat = np.concatenate(list(xv), axis=1).astype(np.float64)
+    w, b = np.zeros(vs * p), 0.0
+    for _ in range(cfg["vertical_iter"]):
+        mu = 1 / (1 + np.exp(-(xcat @ w + b)))
+        w = w - cfg["vertical_lr"] * (xcat.T @ (mu - yv) / vn)
+        b = b - cfg["vertical_lr"] * np.sum(mu - yv) / vn
+    got = out["weights"].cpu().numpy().reshape(-1)
+    err = max(float(np.abs(got - w).max()),
+              abs(float(out["bias"]) - b))
+    res["vertical"].update(max_abs_err=err, tol=VERTICAL_ATOL,
+                           shape=[vs, vn, p], iterations=cfg["vertical_iter"],
+                           final_loss=float(out["losses"][-1]))
+    check(err <= VERTICAL_ATOL, f"vertical LR off pooled GD by {err}")
+    del xvt, sx
+
+    # secure sums: one round's flagship CNN deltas, count-weighted
+    eng, params, _, fx, fy, fcounts, gen = fedavg_state
+    idx = eng.draw_batch_indices(fcounts, gen, 1)[0]
+    with torch.no_grad():
+        deltas, _ = eng.mesh.fed_map(eng._local_update, fx, fy, idx,
+                                     replicated_args=(params,), batched=True)
+    scale = 2.0**16
+    wsum = max(float((d.abs().flatten(1).max(1).values * fcounts).sum())
+               for d in tree_leaves(deltas))
+    check(wsum < 2.0**31 / scale, f"deltas out of secure_sum's range {wsum}")
+    sec = timed("secure_fed_mean_cnn", lambda: C.secure_fed_mean(
+        deltas, fcounts, 17, scale))
+    plain = C.fed_mean(deltas, weights=fcounts)
+    total = float(fcounts.sum())
+    tol = fcounts.shape[0] * 0.5 / scale / total
+    err = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(sec), tree_leaves(plain)))
+    # the masks cancel exactly: the secure sum of the flat weighted deltas
+    # is the plain int32 sum of their quantized values
+    flat = C.flatten_stacked(deltas) * fcounts.reshape(-1, 1)
+    exact = torch.equal(
+        C.secure_sum(flat, 17, scale),
+        C.dequantize(C._wrap32(torch.sum(C.quantize(flat, scale), dim=0,
+                                         dtype=torch.int64)), scale))
+    res["secure_fed_mean_cnn"].update(
+        max_abs_err=err, tol=tol + 1e-7, masks_cancel_exactly=exact,
+        shape=[fcounts.shape[0], int(flat.shape[1])])
+    check(exact, "secure_sum's masks did not cancel")
+    check(err <= tol + 1e-7, f"secure_fed_mean off fed_mean by {err}")
+    # the pair masks' Philox-4x32-10 gives the published known answer on
+    # the card (Random123's zero counter and key)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    kat = [int(w) for w in C._philox([zero] * 4, 0, 0)]
+    res["secure_fed_mean_cnn"]["philox_known_answer"] = kat == PHILOX_KAT
+    check(kat == PHILOX_KAT, f"Philox on the card gave {kat}")
+    del deltas, flat, sec, plain
+
+    # KM-sized counts: at-risk numbers over 4096 event times, exact in
+    # 2^-9 steps
+    t = cfg["km_points"]
+    at_risk = np.stack([np.sort(rng.integers(0, c + 1, size=t))[::-1]
+                        for c in counts]).astype(np.float32)
+    km = {"at_risk": torch.from_numpy(at_risk).to(dev)}
+    ones = torch.ones(n_s, device=dev)
+    sec = timed("secure_fed_mean_km", lambda: C.secure_fed_mean(
+        km, ones, 23, 2.0**9))
+    exact = torch.equal(sec["at_risk"], C.fed_mean(km, weights=ones)[
+        "at_risk"])
+    res["secure_fed_mean_km"].update(exact=exact, shape=[n_s, t])
+    check(exact, "secure_fed_mean of counts is not the exact mean")
+
+    launches = dict(fa.flash_forward_cuda.variant_launches)
+    check(sum(launches.values()) == 0,
+          f"the analysis programs launched a flash kernel: {launches}")
+    for name, r in res.items():
+        extra = {k: v for k, v in r.items()
+                 if k not in ("ms", "runs_ms", "peak_mem_gb")}
+        print(f"analysis {name}: {r['ms']:.3f} ms per call (median of 3; "
+              f"runs {[round(x, 3) for x in r['runs_ms']]}), peak "
+              f"{r['peak_mem_gb']:.3f} GB, {extra}")
+    return dict(config=cfg, programs=res, launches=launches)
+
+
+def _numpy_irls(family, x, y, n_iter=50):
+    """Pooled float64 IRLS in numpy, to convergence (the oracle)."""
+    beta = np.zeros(x.shape[1])
+    for _ in range(n_iter):
+        eta = x @ beta
+        if family == "gaussian":
+            mu, w = eta, np.ones_like(eta)
+        elif family == "binomial":
+            mu = 1 / (1 + np.exp(-eta))
+            w = mu * (1 - mu)
+        else:
+            mu = np.exp(eta)
+            w = mu
+        step = np.linalg.solve(x.T @ (x * w[:, None]), x.T @ (y - mu))
+        beta = beta + step
+        if np.abs(step).max() < 1e-13:
+            break
+    return beta
 
 
 def main(argv: list[str]) -> int:
@@ -817,6 +1350,14 @@ def main(argv: list[str]) -> int:
     fedavg, fedavg_state = phase_fedavg(fa, torch, dev)
     if "--profile" in argv:
         prof["fedavg"] = phase_profile_fedavg(torch, fedavg_state)
+    compression, comp_state = phase_compression(fa, torch, dev,
+                                                fedavg_state[3:6])
+    if "--profile" in argv:
+        prof["compression"] = phase_profile_fedavg(torch, comp_state,
+                                                   "compressed fedavg")
+    del comp_state
+    analysis = phase_analysis(fa, torch, dev, fedavg_state,
+                              profile="--profile" in argv)
     del fedavg_state
     print(f"fedavg-cnn: {fedavg['fused_ms_per_round']:.3f} ms/round fused "
           f"({fedavg['rounds_per_s']:.1f} rounds/s), "
@@ -826,6 +1367,17 @@ def main(argv: list[str]) -> int:
           f"{fedavg['peak_mem_gb']:.3f} GB, final loss "
           f"{fedavg['final_loss']:.4f}, accuracy {fedavg['accuracy']:.4f} "
           f"on {card}")
+    for name, a in compression["arms"].items():
+        print(f"compression {name}: {a['fused_ms_per_round']:.3f} ms/round "
+              f"fused ({a['rounds_per_s']:.1f} rounds/s), peak "
+              f"{a['peak_mem_gb']:.3f} GB, accuracy {a['accuracy']:.4f} on "
+              f"{card}")
+    print(f"compression: reduction {compression['wire']['reduction']}x, "
+          f"accuracy gap {compression['accuracy_gap']:.4f}, compress_stacked "
+          f"{compression['compress_stacked_ms']:.4f} ms on {card}")
+    for name, r in analysis["programs"].items():
+        print(f"analysis {name}: {r['ms']:.3f} ms per call, peak "
+              f"{r['peak_mem_gb']:.3f} GB on {card}")
 
     # each kernel in the dtype whose path it serves (the CUDA-core kernel,
     # which serves neither at head dim 128, beside the TF32x3 one in f32)
@@ -840,6 +1392,8 @@ def main(argv: list[str]) -> int:
         launches=sum(r["launches"][variant] for r in slice_res.values())
         + fedavg["launches"][variant],
         launches_fedavg=fedavg["launches"][variant],
+        launches_compression=compression["launches"][variant],
+        launches_analysis=analysis["launches"][variant],
         **{key: times[dtype][variant][key] for key in (
             "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
@@ -847,14 +1401,15 @@ def main(argv: list[str]) -> int:
     result = dict(card=card, kind=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   max_abs_err_cases=max_err_cases, slice=slice_res,
-                  fedavg=fedavg,
+                  fedavg=fedavg, compression=compression, analysis=analysis,
                   kernels=kernels, times=times, profile=prof,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
-    print(json.dumps({"slice": slice_res, "fedavg": fedavg}))
+    print(json.dumps({"slice": slice_res, "fedavg": fedavg,
+                      "compression": compression, "analysis": analysis}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -264,3 +264,106 @@ def test_scattered_forms_match_jax_on_one_slot(one_slot_meshes, comm_dtype):
     assert tc.all_gather_stations(mesh, s) is s
     with pytest.raises(ValueError, match="mesh federates"):
         tc.fed_sum_scattered(FederationMesh(3, device="cpu"), _torch(x))
+
+
+# ------------------------------------------------------- secure aggregation
+# The pair masks are Philox-4x32-10 in the port and jax.random (threefry)
+# in the JAX package: the bits differ, so the port is held to exact
+# cancellation and to the quantization error, and its sums to the JAX
+# package's.
+
+_M32 = 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("ctr, key, want", [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((_M32,) * 4, (_M32, _M32),
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+])
+def test_philox_matches_the_published_known_answers(ctr, key, want):
+    """Random123's known-answer vectors for Philox-4x32-10, on Python ints
+    and on int64 tensors."""
+    assert tuple(tc._philox(list(ctr), *key)) == want
+    out = tc._philox([torch.tensor([c], dtype=torch.int64) for c in ctr],
+                     *key)
+    assert tuple(int(w) for w in out) == want
+
+
+def test_pair_mask_uses_all_64_bits_of_the_key():
+    i, j = torch.tensor([0, 1]), torch.tensor([2, 3])
+    low = tc._pair_mask(7, i, j, 64)
+    for high in (7 + 2**32, 7 + 2**63):  # the same low 32 bits
+        assert not torch.equal(low, tc._pair_mask(high, i, j, 64))
+    assert tc.fold_in(7, 1) != tc.fold_in(7 + 2**32, 1)
+    assert tc.fold_in(7, 1) >= 2**32  # derived keys keep 64 bits
+    assert tc.fold_in(7, 1) != tc.fold_in(7, 2)
+    for bad in (-1, 2**64):
+        with pytest.raises(ValueError, match="2\\*\\*64"):
+            tc._pair_mask(bad, i, j, 4)
+        with pytest.raises(ValueError, match="2\\*\\*64"):
+            tc.secure_sum(torch.zeros(2, 3), bad)
+
+
+def test_pair_mask_is_a_pure_function_of_key_pair_and_position():
+    i, j = torch.tensor([0, 1, 0]), torch.tensor([2, 2, 2])
+    a = tc._pair_mask(7, i, j, 1000)
+    assert a.dtype == torch.int32 and a.shape == (3, 1000)
+    assert torch.equal(a, tc._pair_mask(7, i, j, 1000))  # both parties
+    assert torch.equal(a[0], a[2])  # the same pair, the same mask
+    assert not torch.equal(a[0], a[1])
+    assert not torch.equal(a, tc._pair_mask(8, i, j, 1000))
+    assert torch.equal(a[:, :10], tc._pair_mask(7, i, j, 10))
+    # spread over the whole int32 range
+    assert int(a.min()) < -2**30 and int(a.max()) > 2**30
+
+
+@pytest.mark.parametrize("mask", [None, [1.0, 0.0, 1.0, 1.0, 0.0]])
+def test_secure_sum_cancels_exactly(mask):
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(5, 6, 7)).astype(np.float32)
+    m = None if mask is None else np.asarray(mask, np.float32)
+    scale = 2.0**16
+    q = tc.quantize(torch.from_numpy(x), scale)
+    masked = tc.mask_station_value(11, q)
+    assert masked.dtype == torch.int32 and masked.shape == q.shape
+    assert bool((masked != q).all())  # every value is masked
+    ours = tc.secure_sum(torch.from_numpy(x), 11, scale, mask=m)
+    # the masks cancel exactly: the sum of the unmasked quantized values
+    keep = np.ones(5, np.float32) if m is None else m
+    plain_q = torch.sum(tc.quantize(torch.from_numpy(
+        x * keep[:, None, None]), scale), dim=0)
+    assert torch.equal(ours, tc.dequantize(plain_q.to(torch.int32), scale))
+    # within the quantization error of the float sum (0.5 / scale each)
+    ref = (x * keep[:, None, None]).sum(0)
+    assert np.abs(ours.numpy() - ref).max() <= 5 * 0.5 / scale
+    # the JAX package's sum of the same quantized values, bit for bit
+    theirs = jc.secure_sum(jnp.asarray(x), jax.random.key(11), scale,
+                           mask=None if m is None else jnp.asarray(m))
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+
+
+def test_secure_sum_wraps_mod_2_32():
+    """Masked values overflow int32 all the time; the int64 sum must be
+    wrapped back before dequantizing."""
+    x = torch.full((4, 3), 30000.0)  # 30000 * 2^16 * 4 > 2^31: wraps
+    out = tc.secure_sum(x, 1, 2.0**16)
+    expect = tc.dequantize(tc._wrap32(torch.full((3,), 4 * 30000 * 2**16,
+                                                 dtype=torch.int64)), 2.0**16)
+    assert torch.equal(out, expect)
+    small = tc.secure_sum(torch.full((4, 3), 0.25), 1, 2.0**16)
+    assert torch.equal(small, torch.full((3,), 1.0))
+
+
+def test_secure_fed_mean_matches_jax_and_fed_mean():
+    x = _stacked(6, s=5)
+    w = np.asarray([3.0, 0.0, 10.0, 1.0, 7.0], np.float32)
+    ours = tc.secure_fed_mean(_torch(x), w, 3)
+    theirs = jc.secure_fed_mean(_jax(x), jnp.asarray(w), jax.random.key(3))
+    _assert_tree_close(ours, theirs, rtol=0, atol=0)
+    # within quantization error of the plain weighted mean: 5 stations'
+    # x * w, each rounded to 2^-17, over a total weight of 21
+    _assert_tree_close(ours, jc.fed_mean(_jax(x), weights=w), rtol=0,
+                       atol=5 * 0.5 / 2.0**16 / 21 + 1e-6)

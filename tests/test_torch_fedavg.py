@@ -7,7 +7,9 @@ same shards. The JAX engine draws its batch indices with jax.random
 them into the port through ``batch_idx``. Counts are ragged and include an
 empty station, and one station is masked out.
 """
+import gc
 import importlib
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +22,7 @@ from vantage6_tpu_torch._tree import tree_leaves, tree_map
 from vantage6_tpu_torch.core.mesh import FederationMesh
 from vantage6_tpu_torch.fed import fedavg as tf
 from vantage6_tpu_torch.fed.collectives import fed_mean
+from vantage6_tpu_torch.fed.compression import CompressorSpec
 from vantage6_tpu_torch.models.cnn import CNN
 from vantage6_tpu_torch.optim import adam, sgd
 from vantage6_tpu_torch.utils.datasets import synthetic_image_classes
@@ -28,6 +31,7 @@ from vantage6_tpu_torch.workloads import fedavg_mnist as W
 JW = importlib.import_module("vantage6_tpu.workloads.fedavg_mnist")
 jf = importlib.import_module("vantage6_tpu.fed.fedavg")
 jcnn = importlib.import_module("vantage6_tpu.models.cnn")
+jcomp = importlib.import_module("vantage6_tpu.fed.compression")
 JaxMesh = importlib.import_module("vantage6_tpu.core.mesh").FederationMesh
 
 S, N_PER, L, B, LR, K = 4, 8, 2, 4, 0.05, 3
@@ -327,8 +331,18 @@ def test_drawn_batch_indices(data):
 
 
 def test_contracts():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        W.make_engine(n_stations=S, device="cpu", compressor=object())
+    # make_engine passes a compressor through; its wire accounting is the
+    # JAX package's
+    spec = CompressorSpec(topk_ratio=0.1, int8=True)
+    comp = W.make_engine(n_stations=S, device="cpu", compressor=spec)
+    assert comp.spec.compressor == spec
+    stats = comp.compression_stats(W.init_params(0, device="cpu"))
+    assert stats == jf.FedAvg(
+        JaxMesh(S, devices=jax.devices()[:1]),
+        jf.FedAvgSpec(loss_fn=_jax_loss, compressor=jcomp.CompressorSpec(
+            topk_ratio=0.1, int8=True))).compression_stats(
+        W.params_to_numpy(W.init_params(0, device="cpu")))
+    assert stats["n_params"] == 421642 and stats["reduction"] >= 4
     eng = _engine()
     assert eng.compression_stats(W.init_params(0, device="cpu")) is None
     x = torch.zeros(S, 5, 28, 28, 1)
@@ -368,3 +382,54 @@ def test_train_fedavg_and_evaluate(jax_params):
     theirs = JW.evaluate(jax_params, ex, ey)
     # bf16 logits on both sides: an argmax may flip on a near tie
     assert abs(ours - theirs) <= 2 / 64
+
+
+def test_an_engine_is_freed_without_the_cycle_collector():
+    """A captured round holds no reference back to its engine, so an engine
+    is freed when its last reference goes, never later by the cycle
+    collector (which could run in the middle of another capture, where
+    destroying a CUDA graph invalidates it)."""
+    def loss(params, bx, by, w):
+        return torch.sum(w * (bx @ params["w"] - by) ** 2) / torch.sum(w)
+
+    eng = tf.FedAvg(FederationMesh(2, device="cpu"),
+                    tf.FedAvgSpec(loss_fn=loss, local_steps=1, batch_size=2))
+    eng.run_rounds({"w": torch.zeros(3)}, torch.ones(2, 4, 3),
+                   torch.ones(2, 4), np.full(2, 4.0), None, 1,
+                   batch_idx=np.zeros((2, 1, 2), np.int64))
+    assert len(eng._fused) == 1
+    ref = weakref.ref(eng)
+    gc.disable()
+    try:
+        del eng
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+def test_fused_cache_evicts_the_oldest_round():
+    """The engine keeps at most FUSED_CACHE_SIZE captured rounds: 33 input
+    signatures leave 32 entries, the oldest gone, its graph and buffers
+    dropped."""
+    def loss(params, bx, by, w):
+        return torch.sum(w * (bx @ params["w"] - by) ** 2) / torch.sum(w)
+
+    eng = tf.FedAvg(FederationMesh(2, device="cpu"),
+                    tf.FedAvgSpec(loss_fn=loss, local_steps=1, batch_size=2))
+    params = {"w": torch.zeros(3)}
+    idx = np.zeros((2, 1, 2), np.int64)
+    assert tf.FUSED_CACHE_SIZE == 32
+    rounds = []
+    for n in range(1, 34):
+        x, y = torch.ones(2, n, 3), torch.ones(2, n)
+        eng.run_rounds(params, x, y, np.full(2, float(n)), None, 1,
+                       batch_idx=idx)
+        rounds.append(list(eng._fused.values())[-1])
+    assert len(eng._fused) == 32
+    assert list(eng._fused.values()) == rounds[1:]
+    assert rounds[0].buffers is None and rounds[0].graph is None
+    assert rounds[1].buffers is not None
+    # a cached signature is reused, not captured again
+    x, y = torch.ones(2, 33, 3), torch.ones(2, 33)
+    eng.run_rounds(params, x, y, np.full(2, 33.0), None, 1, batch_idx=idx)
+    assert list(eng._fused.values()) == rounds[1:]

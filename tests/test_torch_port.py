@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
-package, and its entry points do not fall back to the CPU."""
+"""The PyTorch port stands alone: it imports neither ``jax``, the JAX
+package nor ``pandas`` (the card's machine has none), and its entry points
+do not fall back to the CPU."""
 import os
 import subprocess
 import sys
@@ -12,12 +13,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_and_chip_smoke_import_without_jax():
-    """In a fresh interpreter with ``jax`` blocked, every module of the
-    port and ``chip_smoke.py`` import, and no ``vantage6_tpu`` module is
-    loaded."""
+    """In a fresh interpreter with ``jax`` and ``pandas`` blocked, every
+    module of the port and ``chip_smoke.py`` import, and no ``vantage6_tpu``
+    module is loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
+        sys.modules["pandas"] = None
         sys.path.insert(0, sys.argv[1])
         import vantage6_tpu_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -34,8 +36,9 @@ def test_port_and_chip_smoke_import_without_jax():
     res = subprocess.run([sys.executable, "-c", code, REPO], cwd=REPO,
                          capture_output=True, text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
-    # the transformer slice's 11 modules and FedAvg-CNN's 6
-    assert int(res.stdout.strip().splitlines()[-1]) >= 17
+    # the transformer slice's 11 modules, FedAvg-CNN's 6, and compression
+    # and the analysis programs' 6
+    assert int(res.stdout.strip().splitlines()[-1]) >= 23
 
 
 def test_mesh_without_cuda_requires_explicit_cpu(monkeypatch):
@@ -60,3 +63,13 @@ def test_fedavg_engine_without_cuda_requires_explicit_cpu(monkeypatch):
         W.init_params(0)
     params = W.init_params(0, device="cpu")
     assert all(p.device.type == "cpu" for p in tree_leaves(params))
+
+
+def test_analysis_entry_points_without_cuda_require_explicit_cpu(monkeypatch):
+    from vantage6_tpu_torch.models import logistic
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        logistic.init_logistic(0, 3)
+    params = logistic.init_logistic(0, 3, device="cpu")
+    assert all(p.device.type == "cpu" for p in params.values())

@@ -1,8 +1,9 @@
 """Federated aggregation primitives over the station axis.
 
 Counterpart of ``vantage6_tpu/fed/collectives.py``: the masked, weighted
-reductions, the flat-pack seam and learning-plane stats, and the one-card
-form of the scattered reductions.
+reductions, the flat-pack seam and learning-plane stats, the one-card form
+of the scattered reductions, and the secure sums (pairwise int32 masks
+that cancel exactly).
 
 Each primitive consumes *stacked* per-station pytrees (leading axis S) and
 reduces them on the device. All primitives take an optional participation
@@ -11,6 +12,7 @@ reduces them on the device. All primitives take an optional participation
 from __future__ import annotations
 
 import math
+import operator
 from typing import TYPE_CHECKING, Any
 
 import torch
@@ -312,3 +314,158 @@ def all_gather_stations(mesh: "FederationMesh",
     shard is already the whole vector."""
     del mesh
     return flat
+
+
+# --------------------------------------------------------------------------
+# Secure aggregation: additive masking with exact modular-int cancellation.
+# Station i adds sum_{j>i} PRG(k_ij) - sum_{j<i} PRG(k_ji) to its quantized
+# value; the masks cancel in the sum over stations. Values are quantized to
+# int32 and masked modulo 2^32, so cancellation is exact.
+#
+# The JAX package draws each pair mask with jax.random (threefry-2x32 under
+# a 64-bit key), which torch cannot reproduce. Here a pair mask is
+# Philox-4x32-10 (Salmon et al., SC'11), another counter-based generator,
+# keyed by the 64 bits of ``key`` at the counters (block, i, j, 0): a pure
+# function of (key, i, j, position), so both parties of a pair regenerate
+# it. The bits differ from the JAX package's, the sums do not. As there,
+# the masks derive from one ``key`` and an observer without it faces a
+# 2^64 key space: the guarantee holds against observers without the key
+# (the aggregator threat model needs per-pair secrets; only key
+# provisioning changes).
+# --------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _key_words(key: Any) -> tuple[int, int]:
+    """A 64-bit ``key`` as its (low, high) 32-bit words; a key outside
+    ``[0, 2^64)`` raises rather than being cut."""
+    k = operator.index(key)
+    if not 0 <= k < 2**64:
+        raise ValueError(f"key must be an integer in [0, 2**64), got {key}")
+    return k & _M32, k >> 32
+
+
+def _mulhilo(a: int, b: Any) -> tuple[Any, Any]:
+    """(high, low) 32-bit words of ``a * b`` for ``a``, ``b`` in [0, 2^32),
+    in int64 tensors (or Python ints). The product is below 2^64, so the
+    int64 product, which wraps mod 2^64, holds all of its bits: the arithmetic
+    shift's sign extension is masked off."""
+    p = a * b
+    return (p >> 32) & _M32, p & _M32
+
+
+def _philox(c: list[Any], k0: int, k1: int) -> list[Any]:
+    """Philox-4x32-10 of the counter words ``c`` (four int64 tensors or
+    Python ints in [0, 2^32), broadcasting) under the key (k0, k1)."""
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+    return c
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new 64-bit key from the 64-bit ``key`` and ``data`` (host side):
+    two words of Philox at the counter (data, 1), which no pair mask
+    uses."""
+    lo, hi = _philox([*_key_words(data), 0, 1], *_key_words(key))[:2]
+    return lo | (hi << 32)
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 modulo 2^32 (two's complement)."""
+    return (((x + 2**31) & _M32) - 2**31).to(torch.int32)
+
+
+def _pair_mask(key: int, i: torch.Tensor, j: torch.Tensor,
+               numel: int) -> torch.Tensor:
+    """Pairwise masks PRG(k_ij) as int32, ``[len(i), numel]``: Philox under
+    ``key`` at the counters (block, i, j, 0), four positions a block, the
+    same for both parties of each pair."""
+    k0, k1 = _key_words(key)
+    block = torch.arange((numel + 3) // 4, dtype=torch.int64,
+                         device=i.device).reshape(1, -1)
+    words = _philox([block, i.to(torch.int64).reshape(-1, 1),
+                     j.to(torch.int64).reshape(-1, 1), 0], k0, k1)
+    shape = (i.shape[0], block.shape[1])
+    out = torch.stack([torch.broadcast_to(w, shape) for w in words], dim=2)
+    return _wrap32(out.reshape(shape[0], -1)[:, :numel])
+
+
+def mask_station_value(key: int, quantized: torch.Tensor) -> torch.Tensor:
+    """Every station's pairwise masks added (mod 2^32) to its quantized
+    value: ``quantized`` is ``[S, ...]`` int32, one row per station. A loop
+    over the S partners, each step one ``[S, numel]`` mask for all
+    stations at once."""
+    s = quantized.shape[0]
+    acc = quantized.reshape(s, -1).to(torch.int64)
+    station = torch.arange(s, device=quantized.device)
+    for partner in range(s):
+        other = torch.full_like(station, partner)
+        m = _pair_mask(key, torch.minimum(station, other),
+                       torch.maximum(station, other), acc.shape[1])
+        sign = torch.where(station == partner, 0,
+                           torch.where(other > station, 1, -1))
+        acc = acc + sign.reshape(-1, 1) * m.to(torch.int64)
+    return _wrap32(acc).reshape(quantized.shape)
+
+
+def quantize(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """``round(x * scale)`` as int32, half to even as ``jnp.round``."""
+    return torch.round(x * scale).to(torch.int32)
+
+
+def dequantize(q: torch.Tensor, scale: float) -> torch.Tensor:
+    return q.to(torch.float32) / scale
+
+
+def secure_sum(
+    stacked: torch.Tensor,
+    key: int,
+    scale: float = 2.0**16,
+    mask: Any | None = None,
+) -> torch.Tensor:
+    """Secure sum over the station axis via pairwise additive masking.
+
+    ``stacked``: ``[S, ...]`` float tensor. Each station's contribution is
+    quantized, masked with the pairwise masks, and summed; the int32 sum
+    wraps mod 2^32 and the masks cancel exactly. Returns the dequantized
+    f32 sum. Max representable |sum| is 2^31/scale.
+
+    ``mask`` ([S]) zeroes non-participating stations' values while every
+    station still adds its pairwise masks, so they still cancel."""
+    vals = stacked
+    if mask is not None:
+        m = _as_f32(mask, stacked.device).to(stacked.dtype).reshape(
+            (-1,) + (1,) * (stacked.ndim - 1))
+        vals = torch.where(m != 0, stacked, torch.zeros(
+            (), dtype=stacked.dtype, device=stacked.device)) * m
+    q = mask_station_value(key, quantize(vals, scale))
+    # torch sums int32 into int64: wrap back to int32 before dequantizing
+    return dequantize(_wrap32(torch.sum(q, dim=0, dtype=torch.int64)), scale)
+
+
+def secure_fed_mean(
+    stacked: Pytree,
+    weights: Any,
+    key: int,
+    scale: float = 2.0**16,
+) -> Pytree:
+    """FedAvg aggregation where both the weighted sums and the total weight
+    go through ``secure_sum``: the aggregator never sees one station's
+    update in the clear. Leaf ``i`` is masked with ``fold_in(key, i + 1)``.
+    """
+    device = tree_leaves(stacked)[0].device
+    w32 = _as_f32(weights, device)
+    total_w = secure_sum(w32, key, scale)
+    denom = torch.where(total_w > 0, total_w, torch.ones_like(total_w))
+    out = []
+    for idx, x in enumerate(tree_leaves(stacked)):
+        w = w32.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+        out.append(secure_sum(x * w, fold_in(key, idx + 1), scale) / denom)
+    return tree_unflatten(stacked, out)

@@ -14,18 +14,31 @@ indices are copied in, and its loss and stats copied out, on the device,
 with no host sync between rounds. On the CPU the same round function runs
 K times eagerly. Capture failure raises; there is no eager fallback.
 
+With a ``compressor`` (``fed.compression``), each station's delta is
+compressed with error feedback before aggregation: the aggregation consumes
+the decompressed deltas, and the per-station accumulators ``[S, N]`` ride
+the server state (``{"server", "ef"}``), so the fused path carries them in
+the graph's buffers like any other state.
+
 Batch indices are drawn on the device, uniform in ``[0, max(count, 1))``
 per station and step, so padded rows are never drawn, from an explicit
-``torch.Generator`` (jax.random's stream cannot be reproduced). Every entry
-point also takes the indices themselves (``batch_idx``), which is how the
-parity tests feed both packages the same draws.
+``torch.Generator`` (jax.random's stream cannot be reproduced); with an
+int8 compressor each round also draws its rounding noise ``[S, n_pad]``.
+Each round draws its indices, then its noise, so K fused rounds and K
+eager rounds from generators of the same seed draw the same. Every entry
+point also takes the draws themselves (``batch_idx``, ``noise``), which is
+how the parity tests feed both packages the same draws. The fused path
+draws each round's indices and noise just before its replay, from the
+host, into the graph's buffers: one round's draws are held at a time, so
+its memory does not grow with K.
 
-Not ported yet: gradient compression (``compressor``, ROADMAP.md queue 1
-item 7) and the host telemetry and history hooks (queue 1 item 9).
+Not ported yet: the host telemetry and history hooks (``_record_wire``,
+``_record_fused``, ``attach_history``; ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable
 
@@ -38,12 +51,20 @@ from vantage6_tpu_torch.fed.collectives import (
     all_gather_stations,
     fed_mean,
     fed_mean_scattered,
+    flat_size,
     flatten_stacked,
     flatten_tree,
     padded_flat_size,
     per_round_masks,
     station_update_stats,
     unflatten_like,
+    unflatten_stacked,
+)
+from vantage6_tpu_torch.fed.compression import (
+    CompressorSpec,
+    compress_stacked,
+    draw_noise,
+    noise_size,
 )
 from vantage6_tpu_torch.optim import apply_updates, sgd
 
@@ -57,6 +78,9 @@ Key = torch.Generator | int
 # warm-up rounds on a side stream before a round is captured (lazy library
 # handles and workspaces are created here, outside the capture)
 WARMUP_ROUNDS = 2
+# captured rounds an engine keeps, oldest evicted first (the JAX package's
+# RunnerCache bound)
+FUSED_CACHE_SIZE = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,10 +94,12 @@ class FedAvgSpec:
     # flat f32 vectors. On one card the scatter and gather are the identity
     # (fed.collectives), so only the flat layout and f32 arithmetic remain.
     shard_server_update: bool = False
-    # dtype the flat delta sum is rounded to, as it would cross the wire
+    # dtype the flat delta sum is rounded to, as it would cross the wire; with
+    # a compressor, also the cast before quantizing (cast, then quantize)
     comm_dtype: torch.dtype | None = None
-    # not ported yet (ROADMAP.md queue 1 item 7); anything but None raises
-    compressor: Any = None
+    # compression of the per-station delta uplink with error feedback
+    # (fed.compression); an identity spec changes nothing
+    compressor: CompressorSpec | None = None
     # per-station update norms, cosines and weights, and the pooled update
     # norm, returned as the round's 4th element ({} when off)
     learning_stats: bool = True
@@ -123,15 +149,16 @@ class FedAvg:
     """Runs federated-averaging rounds on a one-GPU FederationMesh."""
 
     def __init__(self, mesh: FederationMesh, spec: FedAvgSpec):
-        if spec.compressor is not None:
-            raise NotImplementedError(
-                "gradient compression is not ported to the PyTorch package "
-                "yet (ROADMAP.md queue 1 item 7); pass compressor=None"
-            )
         self.mesh = mesh
         self.spec = spec
+        if spec.compressor is not None:
+            spec.compressor.validate()
+        # an identity compressor is a no-op: skip the flat-pack round trip
+        self._compressing = (spec.compressor is not None
+                             and not spec.compressor.identity)
         self.server_opt = spec.server_optimizer or sgd(1.0)
-        # captured rounds, keyed on their inputs' structure, shapes, dtypes
+        # captured rounds, keyed on their inputs' structure, shapes, dtypes;
+        # at most FUSED_CACHE_SIZE, the oldest evicted first
         self._fused: dict[str, _FusedRound] = {}
         # warm-up and capture seconds of the newest captured round
         self.last_capture: dict[str, float] | None = None
@@ -171,30 +198,63 @@ class FedAvg:
         counts: torch.Tensor,     # [S]
         mask: torch.Tensor,       # [S] participation (1.0 = in this round)
         idx: torch.Tensor,        # [S, local_steps, batch]
+        noise: torch.Tensor | None = None,  # [S, n_pad] int8 rounding draws
     ):
         deltas, losses = self.mesh.fed_map(
             self._local_update, stacked_x, stacked_y, idx,
             replicated_args=(params,), batched=True,
         )
         weights = counts * mask
+        # the aggregation consumes the decompressed deltas, what a server
+        # reconstructs from each station's compressed uplink
+        ef = flat = None
+        if self._compressing:
+            server_state = opt_state["server"]
+            deltas, ef, flat = self._compress_deltas(deltas, opt_state["ef"],
+                                                     noise, mask)
+        else:
+            server_state = opt_state
         stats: dict[str, Any] = {}
         if self.spec.learning_stats:
-            stats = station_update_stats(flatten_stacked(deltas),
-                                         weights=weights)
+            if flat is None:
+                flat = flatten_stacked(deltas)
+            stats = station_update_stats(flat, weights=weights, ef=ef)
         if self.spec.shard_server_update:
-            params, opt_state = self._sharded_server_update(
-                params, opt_state, deltas, weights
+            params, server_state = self._sharded_server_update(
+                params, server_state, deltas, weights
             )
         else:
             mean_delta = fed_mean(deltas, weights=weights)
             # server update on the pseudo-gradient (negative mean delta)
             pseudo_grad = tree_map(torch.neg, mean_delta)
-            updates, opt_state = self.server_opt.update(
-                pseudo_grad, opt_state, params
+            updates, server_state = self.server_opt.update(
+                pseudo_grad, server_state, params
             )
             params = apply_updates(params, updates)
         round_loss = fed_mean(losses, weights=weights)
-        return params, opt_state, round_loss, stats
+        new_state = ({"server": server_state, "ef": ef} if self._compressing
+                     else server_state)
+        return params, new_state, round_loss, stats
+
+    def _compress_deltas(
+        self, deltas: Pytree, ef: torch.Tensor, noise: torch.Tensor | None,
+        mask: torch.Tensor,
+    ) -> tuple[Pytree, torch.Tensor, torch.Tensor]:
+        """Each station's delta compressed and decompressed with error
+        feedback, ``comm_dtype`` as the cast before quantizing. Returns the
+        reconstructed deltas, the new EF ``[S, N]`` and the reconstructed
+        flat ``[S, N]`` matrix (the learning stats reuse it).
+
+        A masked-out station ships nothing, so its accumulator waits: its
+        EF row carries over unchanged."""
+        template = tree_map(lambda x: x[0], deltas)
+        flat = flatten_stacked(deltas)
+        _, hat, new_ef = compress_stacked(
+            self.spec.compressor, flat, ef, None,
+            cast_dtype=self.spec.comm_dtype, noise=noise,
+        )
+        new_ef = torch.where((mask != 0).reshape(-1, 1), new_ef, ef)
+        return unflatten_stacked(template, hat), new_ef, hat
 
     def _sharded_server_update(
         self, params: Pytree, opt_state: Any, deltas: Pytree,
@@ -213,37 +273,83 @@ class FedAvg:
         return unflatten_like(params, new_flat), opt_state
 
     # -------------------------------------------------------------- sampling
-    def draw_batch_indices(self, counts: Any, key: Key,
-                           n_rounds: int = 1) -> torch.Tensor:
-        """``[n_rounds, S, local_steps, batch]`` example indices on the
-        device, uniform in ``[0, max(count, 1))`` for each station."""
+    def _generator(self, key: Key) -> torch.Generator:
         if isinstance(key, int):
-            key = torch.Generator(device=self.device).manual_seed(key)
+            return torch.Generator(device=self.device).manual_seed(key)
+        return key
+
+    def _draw_idx(self, counts: torch.Tensor,
+                  gen: torch.Generator) -> torch.Tensor:
+        """One round's ``[S, local_steps, batch]`` indices, uniform in
+        ``[0, max(count, 1))`` for each station."""
         spec = self.spec
-        counts = torch.as_tensor(counts, device=self.device)
-        safe = torch.clamp_min(counts.to(torch.int64), 1).reshape(1, -1, 1, 1)
-        u = torch.rand((n_rounds, counts.shape[0], spec.local_steps,
-                        spec.batch_size), generator=key, device=self.device)
+        safe = torch.clamp_min(counts.to(torch.int64), 1).reshape(-1, 1, 1)
+        u = torch.rand((counts.shape[0], spec.local_steps, spec.batch_size),
+                       generator=gen, device=self.device)
         idx = (u * safe.to(torch.float32)).to(torch.int64)
         return torch.minimum(idx, safe - 1)
 
-    def _batch_indices(self, counts: Any, key: Key | None,
-                       batch_idx: Any | None, n_rounds: int) -> torch.Tensor:
+    def draw_batch_indices(self, counts: Any, key: Key,
+                           n_rounds: int = 1) -> torch.Tensor:
+        """``[n_rounds, S, local_steps, batch]`` example indices on the
+        device, uniform in ``[0, max(count, 1))`` for each station, drawn
+        a round at a time."""
+        gen = self._generator(key)
+        counts = torch.as_tensor(counts, device=self.device)
+        return torch.stack([self._draw_idx(counts, gen)
+                            for _ in range(n_rounds)])
+
+    def _noise_shape(self, params: Pytree) -> tuple[int, int] | None:
+        """``(S, n_pad)`` of a round's int8 rounding noise, None when the
+        compressor draws none."""
+        comp = self.spec.compressor
+        if not (self._compressing and comp.int8):
+            return None
+        return (self.mesh.n_stations, noise_size(comp, flat_size(params)))
+
+    def _draws(self, counts: torch.Tensor, params: Pytree, key: Key | None,
+               batch_idx: Any | None, noise: Any | None, n_rounds: int):
+        """A function of the round ``k`` that returns its batch indices
+        ``[S, local_steps, batch]`` and rounding noise ``[S, n_pad]`` (None
+        without int8): the given ones (one round's, for every round, or row
+        ``k`` of each round's), else drawn with ``key`` when called, its
+        indices first. Called for k = 0, 1, ... in turn, it holds one
+        round's draws at a time."""
         spec = self.spec
-        shape = (n_rounds, self.mesh.n_stations, spec.local_steps,
-                 spec.batch_size)
-        if batch_idx is None:
-            if key is None:
-                raise ValueError("pass a key or batch_idx")
-            return self.draw_batch_indices(counts, key, n_rounds)
-        idx = torch.as_tensor(batch_idx, device=self.device).to(torch.int64)
-        if tuple(idx.shape) != shape[1:] and tuple(idx.shape) != shape:
+        idx_shape = (n_rounds, self.mesh.n_stations, spec.local_steps,
+                     spec.batch_size)
+        u_shape = self._noise_shape(params)
+        draw_idx = batch_idx is None
+        draw_u = u_shape is not None and noise is None
+        if key is None and draw_idx:
+            raise ValueError("pass a key or batch_idx")
+        if key is None and draw_u:
+            raise ValueError("pass a key or noise")
+        gen = None if key is None else self._generator(key)
+        idx = (None if draw_idx else
+               self._given("batch_idx", batch_idx, idx_shape, torch.int64))
+        u = (None if u_shape is None or draw_u else
+             self._given("noise", noise, (n_rounds,) + u_shape,
+                         torch.float32))
+
+        def draw(k: int):
+            k_idx = self._draw_idx(counts, gen) if draw_idx else idx[k]
+            if u_shape is None:
+                return k_idx, None
+            return k_idx, (draw_noise(gen, u_shape, self.device) if draw_u
+                           else u[k])
+
+        return draw
+
+    def _given(self, name: str, x: Any, shape: tuple[int, ...],
+               dtype: torch.dtype) -> torch.Tensor:
+        t = self._place(x, dtype)
+        if tuple(t.shape) != shape[1:] and tuple(t.shape) != shape:
             raise ValueError(
-                f"batch_idx must be [S, local_steps, batch] = {shape[1:]} "
-                f"(or [n_rounds, ...] = {shape} for fused runs), got "
-                f"{tuple(idx.shape)}"
+                f"{name} must be {shape[1:]} (or [n_rounds, ...] = {shape} "
+                f"for fused runs), got {tuple(t.shape)}"
             )
-        return idx.expand(shape)
+        return t.expand(shape)
 
     # ------------------------------------------------------------ public API
     def _place(self, x: Any, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -254,7 +360,9 @@ class FedAvg:
         """Server-optimizer state for ``params``. With
         ``shard_server_update`` it is built over the flat padded f32 param
         vector. A step count lives on the device (a 0-d int32 tensor) so a
-        captured round reads it on every replay."""
+        captured round reads it on every replay. With a compressor the
+        state is ``{"server": <optimizer state>, "ef": [S, N]}``, each
+        station's error-feedback accumulator starting at zero."""
         params = self._device_params(params)
         if self.spec.shard_server_update:
             flat = flatten_tree(params)
@@ -262,6 +370,10 @@ class FedAvg:
             state = self.server_opt.init(F.pad(flat, (0, n_pad - flat.numel())))
         else:
             state = self.server_opt.init(params)
+        if self._compressing:
+            ef = torch.zeros((self.mesh.n_stations, flat_size(params)),
+                             dtype=torch.float32, device=self.device)
+            state = {"server": state, "ef": ef}
         return self._device_state(state)
 
     def _device_params(self, params: Pytree) -> Pytree:
@@ -285,21 +397,24 @@ class FedAvg:
         key: Key | None = None,
         mask: Any | None = None,
         batch_idx: Any | None = None,
+        noise: Any | None = None,
     ):
         """One federated round. Returns (params, opt_state, mean_loss,
         stats); ``stats`` is ``station_update_stats``' dict ({} when
         ``spec.learning_stats`` is off). The batch indices come from
-        ``batch_idx`` ([S, local_steps, batch]) or are drawn with ``key``.
-        Every input is moved to the engine's device first."""
+        ``batch_idx`` ([S, local_steps, batch]) and an int8 compressor's
+        rounding noise from ``noise`` ([S, n_pad]), or each is drawn with
+        ``key``. Every input is moved to the engine's device first."""
         counts = self._place(counts, torch.float32)
         mask = (torch.ones_like(counts) if mask is None
                 else self._place(mask, torch.float32))
-        idx = self._batch_indices(counts, key, batch_idx, 1)[0]
+        params = self._device_params(params)
+        idx, u = self._draws(counts, params, key, batch_idx, noise, 1)(0)
         with torch.no_grad():
             return self._round_impl(
-                self._device_params(params), self._device_state(opt_state),
+                params, self._device_state(opt_state),
                 self._place(stacked_x), self._place(stacked_y), counts, mask,
-                idx,
+                idx, u,
             )
 
     def async_round(
@@ -315,6 +430,7 @@ class FedAvg:
         spec: AsyncRoundSpec,
         mask: Any | None = None,
         batch_idx: Any | None = None,
+        noise: Any | None = None,
     ):
         """One buffered-async round: only ``accept_mask`` stations
         contribute, each discounted by ``spec.staleness_discount **
@@ -326,13 +442,50 @@ class FedAvg:
         if mask is not None:
             effective = effective * self._place(mask, torch.float32)
         return self.round(params, opt_state, stacked_x, stacked_y, counts,
-                          key, mask=effective, batch_idx=batch_idx)
+                          key, mask=effective, batch_idx=batch_idx,
+                          noise=noise)
 
-    def compression_stats(self, params: Pytree) -> None:
-        """Wire accounting of the compressed delta uplink: None, since
-        compression is not ported yet (ROADMAP.md queue 1 item 7)."""
-        del params
-        return None
+    def compression_stats(self, params: Pytree) -> dict[str, Any] | None:
+        """Per-round wire accounting of the delta uplink: raw and
+        compressed bytes across all stations and the reduction ratio. None
+        without an effective compressor. Metadata only."""
+        if not self._compressing:
+            return None
+        n = flat_size(params)
+        spec = self.spec.compressor
+        s = self.mesh.n_stations
+        return {
+            "n_params": n,
+            "raw_bytes_per_round": 4 * n * s,
+            "wire_bytes_per_round": spec.wire_nbytes(n) * s,
+            "reduction": round(spec.ratio(n), 2),
+        }
+
+    def _fused_inputs(self, params, opt_state, counts, key, batch_idx,
+                      noise, n_rounds, **row_masks):
+        """(carry, row) of a fused run: params and server state on the
+        device (a fresh state when ``opt_state`` is None), and a function
+        of the round ``k`` that returns its row of each mask (given as
+        ``[S]`` or ``[n_rounds, S]``), its batch indices and its rounding
+        noise, drawn when it is called."""
+        if n_rounds < 1:
+            raise ValueError(f"n_rounds must be >= 1, got {n_rounds}")
+        params = self._device_params(params)
+        if opt_state is None:
+            opt_state = self.init(params)
+        draw = self._draws(counts, params, key, batch_idx, noise, n_rounds)
+        masks = {name: self._place(per_round_masks(self._place(m), n_rounds))
+                 for name, m in row_masks.items()}
+
+        def row(k: int) -> dict[str, torch.Tensor]:
+            out = {name: m[k] for name, m in masks.items()}
+            out["idx"], u = draw(k)
+            if u is not None:
+                out["noise"] = u
+            return out
+
+        return {"params": params,
+                "opt_state": self._device_state(opt_state)}, row
 
     def run_rounds(
         self,
@@ -347,13 +500,15 @@ class FedAvg:
         donate: bool = True,
         unroll: int | bool = 1,
         batch_idx: Any | None = None,
+        noise: Any | None = None,
     ):
         """``n_rounds`` federated rounds, the fused path: on the card one
         round is a captured CUDA graph replayed ``n_rounds`` times, with no
         host sync between rounds. ``mask`` is ``[S]`` (every round) or
         ``[n_rounds, S]``; ``batch_idx`` is ``[n_rounds, S, local_steps,
-        batch]`` (or one round's, for every round), else indices are drawn
-        with ``key``. Returns (params, opt_state, losses[n], stats), the
+        batch]`` (or one round's, for every round) and ``noise`` ``[n_rounds,
+        S, n_pad]`` (or one round's), else each is drawn with ``key`` just
+        before its round. Returns (params, opt_state, losses[n], stats), the
         stats stacked over rounds ({} when ``spec.learning_stats`` is off).
         Pass ``opt_state`` to continue a run; omitted, a fresh state is
         made. Every input is moved to the engine's device first.
@@ -363,18 +518,11 @@ class FedAvg:
         never consumed, and the round is replayed, not unrolled."""
         del donate, unroll
         counts = self._place(counts, torch.float32)
-        rows = {
-            "mask": self._place(per_round_masks(
-                torch.ones_like(counts) if mask is None else
-                self._place(mask), n_rounds)),
-            "idx": self._batch_indices(counts, key, batch_idx, n_rounds),
-        }
-        params = self._device_params(params)
-        if opt_state is None:
-            opt_state = self.init(params)
-        carry = {"params": params, "opt_state": self._device_state(opt_state)}
+        carry, row = self._fused_inputs(
+            params, opt_state, counts, key, batch_idx, noise, n_rounds,
+            mask=torch.ones_like(counts) if mask is None else mask)
         carry, losses, stats = self._run_fused(
-            carry, dict(x=stacked_x, y=stacked_y, counts=counts), rows,
+            carry, dict(x=stacked_x, y=stacked_y, counts=counts), row,
             n_rounds)
         return carry["params"], carry["opt_state"], losses, stats
 
@@ -393,6 +541,7 @@ class FedAvg:
         opt_state: Any = None,
         donate: bool = True,
         batch_idx: Any | None = None,
+        noise: Any | None = None,
     ):
         """``n_rounds`` buffered-async rounds, fused as ``run_rounds``: the
         staleness vector is carried on the device from round to round, and
@@ -403,27 +552,17 @@ class FedAvg:
         del donate
         spec.validate()
         counts = self._place(counts, torch.float32)
-        rows = {
-            "mask": self._place(per_round_masks(
-                torch.ones_like(counts) if mask is None else
-                self._place(mask), n_rounds)),
-            "accept": self._place(per_round_masks(
-                self._place(accept_masks), n_rounds)),
-            "idx": self._batch_indices(counts, key, batch_idx, n_rounds),
-        }
-        params = self._device_params(params)
-        if opt_state is None:
-            opt_state = self.init(params)
-        carry = {
-            "params": params, "opt_state": self._device_state(opt_state),
-            "staleness": (torch.zeros_like(counts) if staleness is None
-                          else self._place(staleness, torch.float32)),
-        }
+        carry, row = self._fused_inputs(
+            params, opt_state, counts, key, batch_idx, noise, n_rounds,
+            mask=torch.ones_like(counts) if mask is None else mask,
+            accept=accept_masks)
+        carry["staleness"] = (torch.zeros_like(counts) if staleness is None
+                              else self._place(staleness, torch.float32))
         discount = torch.tensor(spec.staleness_discount, dtype=torch.float32,
                                 device=self.device)
         carry, losses, stats = self._run_fused(
             carry, dict(x=stacked_x, y=stacked_y, counts=counts,
-                        discount=discount), rows, n_rounds)
+                        discount=discount), row, n_rounds)
         return (carry["params"], carry["opt_state"], carry["staleness"],
                 losses, stats)
 
@@ -439,7 +578,7 @@ class FedAvg:
                         * torch.pow(b["discount"], b["staleness"]) * mask)
             params, opt_state, loss, stats = self._round_impl(
                 b["params"], b["opt_state"], b["x"], b["y"], b["counts"],
-                mask, b["idx"],
+                mask, b["idx"], b.get("noise"),
             )
             new = {"params": params, "opt_state": opt_state}
             if "accept" in b:
@@ -452,23 +591,23 @@ class FedAvg:
                     dst.copy_(src)
         return loss, stats
 
-    def _run_fused(self, carry, consts, rows, n_rounds):
+    def _run_fused(self, carry, consts, row, n_rounds):
         """``n_rounds`` rounds of ``_round_step`` over ``carry`` (written
-        back each round), ``consts`` (read) and one row per round of each
-        tensor in ``rows``; the round is captured once per signature."""
-        if n_rounds < 1:
-            raise ValueError(f"n_rounds must be >= 1, got {n_rounds}")
-        inputs = dict(carry, **tree_map(self._place, consts),
-                      **{name: t[0] for name, t in rows.items()})
+        back each round), ``consts`` (read) and each round's ``row(k)``;
+        the round is captured once per signature."""
+        inputs = dict(carry, **tree_map(self._place, consts), **row(0))
         key = repr(tree_map(lambda t: (tuple(t.shape), str(t.dtype)), inputs))
         fused = self._fused.get(key)
         if fused is None:
+            if len(self._fused) >= FUSED_CACHE_SIZE:
+                self._fused.pop(next(iter(self._fused))).close()
             fused = _FusedRound(self._round_step, inputs,
                                 capture=self.device.type == "cuda")
             self._fused[key] = fused
             if fused.seconds is not None:
                 self.last_capture = fused.seconds
-        return fused.run(inputs, rows, list(carry), n_rounds)
+        return fused.run(self._round_step, inputs, row, list(carry),
+                         n_rounds)
 
 
 class _FusedRound:
@@ -477,10 +616,15 @@ class _FusedRound:
     ``step(buffers)`` runs a round and writes its carry back into the
     buffers in place, so the next round reads it. On a CUDA device the step
     is captured once as a CUDA graph, after a warm-up on a side stream, and
-    each round is one replay; elsewhere it runs eagerly."""
+    each round is one replay; elsewhere it runs eagerly.
+
+    The round does not keep ``step`` (the engine's bound method): the
+    engine holds its rounds, and a reference back would make a cycle that
+    only the cycle collector frees, at any allocation, possibly in the
+    middle of another capture, where destroying a graph invalidates it.
+    For the same reason the collector is off while a round is captured."""
 
     def __init__(self, step: Callable, inputs: dict[str, Any], capture: bool):
-        self.step = step
         self.buffers = tree_map(torch.clone, inputs)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs: Any = None
@@ -496,29 +640,44 @@ class _FusedRound:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.outputs = step(self.buffers)
+            gc.collect()
+            gc_was_on = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph):
+                    self.outputs = step(self.buffers)
+            finally:
+                if gc_was_on:
+                    gc.enable()
             torch.cuda.synchronize()
             self.seconds = {"warmup_s": t1 - t0,
                             "capture_s": time.perf_counter() - t1}
 
-    def run(self, inputs: dict[str, Any], rows: dict[str, torch.Tensor],
+    def close(self) -> None:
+        """Drop the captured graph and the buffers (an evicted round)."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.buffers = self.outputs = None
+
+    def run(self, step: Callable, inputs: dict[str, Any],
+            row: Callable[[int], dict[str, torch.Tensor]],
             carry_names: list[str], n_rounds: int):
-        """Copy ``inputs`` into the buffers, then per round copy in its row
-        of each ``rows`` tensor, run it, and copy out its loss and stats.
+        """Copy ``inputs`` (round 0's row included) into the buffers, then
+        per round copy in ``row(k)`` for k > 0, run it (replay the graph,
+        or ``step`` eagerly), and copy out its loss and stats.
         Returns (the carry named by ``carry_names``, losses[n], stats)."""
         b = self.buffers
         for dst, src in zip(tree_leaves(b), tree_leaves(inputs), strict=True):
             dst.copy_(src)
         losses, stats = None, None
         for k in range(n_rounds):
-            for name, t in rows.items():
-                b[name].copy_(t[k])
+            for name, t in (row(k) if k else {}).items():
+                b[name].copy_(t)
             if self.graph is not None:
                 self.graph.replay()
                 loss, round_stats = self.outputs
             else:
-                loss, round_stats = self.step(b)
+                loss, round_stats = step(b)
             if losses is None:
                 losses = loss.new_empty((n_rounds,) + tuple(loss.shape))
                 stats = tree_map(
