@@ -78,7 +78,21 @@ Phases, each of which raises (exit code 1) on failure:
    counts (exact), and the pair masks' Philox-4x32-10 against its
    published known answer on the card; no flash kernel may launch.
 
-``--profile`` traces one more round of each run of phase 4
+9. the ring path, ``TransformerConfig``'s default attention, at phase 4's
+   width through ``make_engine``/``init``/``shard_tokens``/``round`` for
+   8 rounds, station 3 masked in round 2: one sequence shard in bf16 and
+   in f32 compute, four shards in bf16; ms/round, tokens/s and peak
+   memory of each run. In each the loss must be finite and fall and no
+   flash kernel may launch; at one shard round 0's loss must equal a
+   flash round's from the same state within phase 4's loss tolerance.
+   Then ``ring_attention_sharded`` at ``[16, 1024, 8, 128]`` causal over
+   4 shards against ``reference_attention`` (f32 within 2e-5; bf16
+   against the f32 oracle within 2 bf16 ulps), ``tp_mlp`` at d_model
+   1024, hidden 4096, on 2 and 4 shards against the dense MLP (1e-5), and
+   the trained full-width params (105M f32, on the card) through the v2
+   wire format and back bit for bit, encode and decode timed.
+
+``--profile`` traces one more round of each run of phases 4 and 9
 (torch.profiler) and reports device time by kernel group and under the
 ``attention_fwd``/``attention_bwd`` profiler ranges, one fused round of
 phases 6 and 7 (dense and compressed) with the device's busy share, and
@@ -129,6 +143,12 @@ FULL = dict(d_model=1024, n_layers=8, n_heads=8, seq=1024, batch=16,
             vocab=4096, stations=4)
 ROUNDS = 8
 DROP_ROUND = 2  # station 3 is masked out in this round
+
+# the ring path's runs: (compute dtype, seq_devices)
+RING_RUNS = (("bfloat16", 1), ("float32", 1), ("bfloat16", 4))
+RING_CHECK_SHARDS = 4  # ring_attention_sharded's check at the main shape
+TP_SHARDS = (2, 4)
+TP_TOL = 1e-5  # the CPU parity tests' tp_mlp tolerance
 
 # the JAX package's flagship FedAvg-CNN benchmark (bench.py N_STATIONS,
 # N_PER_STATION, LOCAL_STEPS, BATCH, LR, SPMD_ROUNDS, SYNTH_NOISE,
@@ -329,39 +349,39 @@ def phase_gradients(fa, torch, dev):
             check(err <= lim, f"gradient d{name} disagrees: {err}")
 
 
-def phase_slice(fa, ft, torch, dev, dtype=None):
-    """The slice at full width for ROUNDS rounds; ``dtype`` is the compute
-    dtype, None for ``TransformerConfig``'s default (f32)."""
+def slice_engine(ft, torch, dtype=None, seq_devices=1, **cfg_kw):
+    """The slice's engine at full width on the card, its tokens and its
+    initial state. ``dtype`` is the compute dtype, None for
+    ``TransformerConfig``'s default (f32); ``cfg_kw`` overrides other
+    config fields (``attention``)."""
     cfg = ft.TransformerConfig(
         vocab=FULL["vocab"], d_model=FULL["d_model"],
         n_heads=FULL["n_heads"], n_layers=FULL["n_layers"],
-        max_len=FULL["seq"], attention="flash",
+        max_len=FULL["seq"], **cfg_kw,
         **({} if dtype is None else {"dtype": dtype}),
     )
-    dtype_name = str(cfg.dtype).removeprefix("torch.")
-    variant = MAIN_VARIANT[dtype_name]
-    check(fa.kernel_variant(cfg.dtype, cfg.head_dim) == variant,
-          f"{dtype_name} attention is not served by the {variant} kernel")
-    loss_rtol = LOSS_RTOL_F32 if cfg.dtype == torch.float32 else LOSS_RTOL
     n_s = FULL["stations"]
-    eng = ft.make_engine(n_stations=n_s, seq_devices=1, cfg=cfg, lr=1e-3)
+    eng = ft.make_engine(n_stations=n_s, seq_devices=seq_devices, cfg=cfg,
+                         lr=1e-3)
     check(eng.device.type == "cuda", "engine is not on the card")
     tokens = eng.shard_tokens(ft.make_federated_tokens(
         n_s, batch=FULL["batch"], seq_len=FULL["seq"], vocab=FULL["vocab"],
     ))
     params, opt = eng.init(torch.Generator().manual_seed(0))
+    return cfg, eng, tokens, params, opt
+
+
+def train_rounds(torch, eng, params, opt, tokens, label):
+    """ROUNDS rounds from (params, opt), station 3 masked out in
+    DROP_ROUND; checks that the losses are finite and fall and the params
+    finite. Returns (params, opt, losses, seconds a round, the state the
+    last round started from)."""
+    n_s = FULL["stations"]
     full = torch.ones(n_s)
     drop = torch.tensor([1.0] * (n_s - 1) + [0.0])
-
-    # the main path's counts start here
-    torch.cuda.reset_peak_memory_stats()
-    fa.flash_forward_cuda.launches = 0
-    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
     losses, secs = [], []
-    state = None
     for r in range(ROUNDS):
-        if r == ROUNDS - 1:
-            state = (params, opt)  # the recompute round starts from here
+        state = (params, opt)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt, loss = eng.round(params, opt, tokens,
@@ -369,11 +389,53 @@ def phase_slice(fa, ft, torch, dev, dtype=None):
         loss = loss.item()  # waits for the round
         secs.append(time.perf_counter() - t0)
         losses.append(loss)
-        print(f"{dtype_name} round {r} "
+        print(f"{label} round {r} "
               f"mask={'drop3' if r == DROP_ROUND else 'all'} "
               f"loss {loss:.6f} {1e3 * secs[-1]:.1f} ms")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"{label}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    check(all(bool(torch.isfinite(p).all()) for p in
+              [params["embed"], params["pos"]]
+              + [w for layer in params["layers"] for w in layer.values()]),
+          f"{label}: non-finite parameters")
+    return params, opt, losses, secs, state
+
+
+def round_figures(torch, secs):
+    """ms/round over the steady rounds (round 0 carries one-time set-up:
+    cuBLAS, the kernels' first launch), tokens/s and the peak memory."""
+    steady = secs[1:]
+    ms = 1e3 * sum(steady) / len(steady)
+    tokens_per_round = FULL["stations"] * FULL["batch"] * FULL["seq"]
+    return dict(ms_per_round=ms, first_round_ms=1e3 * secs[0],
+                round_ms=[1e3 * s for s in secs],
+                tokens_per_s=tokens_per_round / (ms / 1e3),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_slice(fa, ft, torch, dev, dtype=None):
+    """The slice at full width for ROUNDS rounds, flash attention;
+    ``dtype`` is the compute dtype, None for ``TransformerConfig``'s
+    default (f32)."""
+    cfg, eng, tokens, params, opt = slice_engine(ft, torch, dtype,
+                                                 attention="flash")
+    dtype_name = str(cfg.dtype).removeprefix("torch.")
+    variant = MAIN_VARIANT[dtype_name]
+    check(fa.kernel_variant(cfg.dtype, cfg.head_dim) == variant,
+          f"{dtype_name} attention is not served by the {variant} kernel")
+    loss_rtol = LOSS_RTOL_F32 if cfg.dtype == torch.float32 else LOSS_RTOL
+    n_s = FULL["stations"]
+    full = torch.ones(n_s)
+
+    # the main path's counts start here
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    params, opt, losses, secs, state = train_rounds(
+        torch, eng, params, opt, tokens, dtype_name)
     launches = dict(fa.flash_forward_cuda.variant_launches)
-    peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
+    figures = round_figures(torch, secs)
     expect = ROUNDS * n_s * cfg.n_layers
     print(f"flash kernel launches in the {dtype_name} run: {launches} "
           f"(rounds x stations x layers = {expect})")
@@ -381,13 +443,6 @@ def phase_slice(fa, ft, torch, dev, dtype=None):
           f"the {dtype_name} run did not run the {variant} kernel")
     check(sum(launches.values()) == expect,
           f"the {dtype_name} run ran another kernel than {variant}")
-    check(all(x == x and abs(x) != float("inf") for x in losses),
-          f"non-finite loss {losses}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    check(all(bool(torch.isfinite(p).all()) for p in
-              [params["embed"], params["pos"]]
-              + [w for layer in params["layers"] for w in layer.values()]),
-          "non-finite parameters")
 
     rc_eng = ft.make_engine(
         n_stations=n_s, seq_devices=1,
@@ -402,21 +457,170 @@ def phase_slice(fa, ft, torch, dev, dtype=None):
     check(fa.flash_forward_cuda.launches == expect,
           "the plain round launched a kernel")
 
-    steady = secs[1:]  # round 0 carries one-time set-up (cuBLAS, build)
-    ms = 1e3 * sum(steady) / len(steady)
-    tokens_per_round = n_s * FULL["batch"] * FULL["seq"]
     res = dict(
         config=dict(FULL, dtype=dtype_name, attention="flash", lr=1e-3),
-        rounds=ROUNDS, losses=losses, first_round_ms=1e3 * secs[0],
-        ms_per_round=ms, round_ms=[1e3 * s for s in secs],
-        tokens_per_s=tokens_per_round / (ms / 1e3),
+        rounds=ROUNDS, losses=losses, **figures,
         launches=launches, launches_per_round=n_s * cfg.n_layers,
         recompute_loss=rc_loss, loss_rel_diff=rel, loss_rtol=loss_rtol,
-        peak_mem_gb=peak_mem_gb,
     )
-    print(f"{dtype_name} slice: {ms:.1f} ms/round, "
-          f"{res['tokens_per_s']:.0f} tokens/s, peak {peak_mem_gb:.2f} GB")
+    print(f"{dtype_name} slice: {res['ms_per_round']:.1f} ms/round, "
+          f"{res['tokens_per_s']:.0f} tokens/s, peak "
+          f"{res['peak_mem_gb']:.2f} GB")
     return res, (eng, params, opt, tokens, full)
+
+
+def phase_ring(fa, ft, torch, dtype_name, seq_devices):
+    """The slice at full width through ``TransformerConfig``'s default
+    attention, the ring, over ``seq_devices`` sequence shards, in
+    ``dtype_name`` compute, for ROUNDS rounds. No flash kernel may launch.
+    At one shard, round 0's loss must equal a flash round's from the same
+    state. Returns (figures, (engine, final params, optimizer state,
+    tokens, a full mask))."""
+    dtype = None if dtype_name == "float32" else getattr(torch, dtype_name)
+    cfg, eng, tokens, params0, opt0 = slice_engine(
+        ft, torch, dtype, seq_devices=seq_devices)
+    check(cfg.attention == "ring", "the default attention is not the ring")
+    check(str(cfg.dtype) == f"torch.{dtype_name}", "compute dtype")
+    label = f"ring P={seq_devices} {dtype_name}"
+
+    # the main path's counts start here
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    params, opt, losses, secs, _ = train_rounds(torch, eng, params0, opt0,
+                                                tokens, label)
+    launches = dict(fa.flash_forward_cuda.variant_launches)
+    figures = round_figures(torch, secs)
+    print(f"flash kernel launches in the {label} run: {launches}")
+    check(sum(launches.values()) == 0,
+          f"the {label} run launched a flash kernel")
+    res = dict(config=dict(FULL, dtype=dtype_name, attention="ring",
+                           seq_devices=seq_devices, lr=1e-3),
+               rounds=ROUNDS, losses=losses, launches=launches, **figures)
+    if seq_devices == 1:
+        loss_rtol = LOSS_RTOL_F32 if dtype is None else LOSS_RTOL
+        fl_eng = ft.make_engine(
+            n_stations=FULL["stations"], seq_devices=1,
+            cfg=dataclasses.replace(cfg, attention="flash"), lr=1e-3)
+        fl_loss = fl_eng.round(params0, opt0, tokens,
+                               torch.ones(FULL["stations"]))[2].item()
+        rel = abs(losses[0] - fl_loss) / abs(fl_loss)
+        print(f"{label} round 0 loss {losses[0]:.6f}, flash round from the "
+              f"same state {fl_loss:.6f}: rel diff {rel:.3e} tol "
+              f"{loss_rtol:.3e}")
+        check(rel <= loss_rtol, f"{label}: ring and flash losses disagree")
+        res.update(flash_loss=fl_loss, loss_rel_diff=rel,
+                   loss_rtol=loss_rtol)
+    print(f"{label}: {res['ms_per_round']:.1f} ms/round, "
+          f"{res['tokens_per_s']:.0f} tokens/s, peak "
+          f"{res['peak_mem_gb']:.2f} GB")
+    return res, (eng, params, opt, tokens, torch.ones(FULL["stations"]))
+
+
+def phase_parallel_ops(torch, dev):
+    """``ring_attention_sharded`` against ``reference_attention`` and
+    ``tp_mlp`` against the dense MLP at the main path's shapes, each
+    timed (CUDA events) beside its plain counterpart."""
+    from vantage6_tpu_torch.parallel import (reference_attention,
+                                             ring_attention_sharded,
+                                             shard_params_for_tp, tp_mlp)
+
+    b, t, h = FULL["batch"], FULL["seq"], FULL["n_heads"]
+    d = FULL["d_model"] // h
+    g = torch.Generator(device=dev).manual_seed(4)
+    res = {}
+    q, k, v = (torch.randn(b, t, h, d, generator=g, device=dev)
+               for _ in range(3))
+    oracle = reference_attention(q, k, v, causal=True)
+    for name, dtype, tol in (("float32", torch.float32, F32_TOL),
+                             ("bfloat16", torch.bfloat16, BF16_TOL)):
+        # bf16: held to the f32 oracle on the same (bf16-exact) inputs
+        qc, kc, vc = (x.to(dtype) for x in (q, k, v))
+        ref = oracle if dtype == torch.float32 else reference_attention(
+            qc.float(), kc.float(), vc.float(), causal=True)
+        out = ring_attention_sharded(qc, kc, vc, RING_CHECK_SHARDS,
+                                     causal=True)
+        check(out.dtype == dtype and out.shape == q.shape, "ring output")
+        err = (out.float() - ref).abs().max().item()
+        lim = tol + tol * ref.abs().max().item()
+        ms = cuda_ms(lambda: ring_attention_sharded(
+            qc, kc, vc, RING_CHECK_SHARDS, causal=True), 3, warmup=1)
+        ref_ms = cuda_ms(lambda: reference_attention(
+            qc, kc, vc, causal=True), 3, warmup=1)
+        print(f"ring_attention_sharded [{b},{t},{h},{d}] {name} causal, "
+              f"{RING_CHECK_SHARDS} shards, vs f32 reference_attention: "
+              f"max_abs_err {err:.3e} tol {lim:.3e}; {ms:.3f} ms, "
+              f"reference_attention in {name} {ref_ms:.3f} ms")
+        check(err <= lim, f"ring attention off the reference in {name}")
+        res[f"ring_{name}"] = dict(max_abs_err=err, tol=lim, ms=ms,
+                                   reference_ms=ref_ms,
+                                   shards=RING_CHECK_SHARDS)
+    del q, k, v, oracle, out, ref
+
+    dm = FULL["d_model"]
+    x = torch.randn(b, t, dm, generator=g, device=dev)
+    w_up = 0.02 * torch.randn(dm, 4 * dm, generator=g, device=dev)
+    w_down = 0.02 * torch.randn(4 * dm, dm, generator=g, device=dev)
+
+    def dense():
+        return torch.nn.functional.gelu(x @ w_up, approximate="tanh") @ w_down
+
+    want = dense()
+    dense_ms = cuda_ms(dense, 3, warmup=1)
+    for shards in TP_SHARDS:
+        rules = {"w_up": 1, "w_down": 0}
+        blocks = [shard_params_for_tp({"w_up": w_up, "w_down": w_down},
+                                      i, shards, rules)
+                  for i in range(shards)]
+        up = torch.stack([blk["w_up"] for blk in blocks])
+        down = torch.stack([blk["w_down"] for blk in blocks])
+        out = tp_mlp(x, up, down)
+        err = (out - want).abs().max().item()
+        lim = TP_TOL + TP_TOL * want.abs().max().item()
+        ms = cuda_ms(lambda: tp_mlp(x, up, down), 3, warmup=1)
+        print(f"tp_mlp [{b},{t},{dm}] x [{dm},{4 * dm}] f32, {shards} shards, "
+              f"vs the dense MLP: max_abs_err {err:.3e} tol {lim:.3e}; "
+              f"{ms:.3f} ms, dense {dense_ms:.3f} ms")
+        check(err <= lim, f"tp_mlp on {shards} shards off the dense MLP")
+        res[f"tp_mlp_{shards}"] = dict(max_abs_err=err, tol=lim, ms=ms,
+                                       dense_ms=dense_ms)
+    return res
+
+
+def phase_wire(torch, params):
+    """The full-width params, on the card, through the v2 wire format and
+    back, bit for bit; encode and decode timed on the host clock."""
+    from vantage6_tpu_torch._tree import tree_leaves
+    from vantage6_tpu_torch.common import serialization as ser
+
+    leaves = tree_leaves(params)
+    check(all(x.is_cuda for x in leaves), "the params are not on the card")
+    n = sum(x.numel() for x in leaves)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = ser.serialize(params, format="v2")
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = ser.deserialize(blob)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ser.deserialize(blob, writable=True)
+    decode_writable_s = time.perf_counter() - t0
+    got = tree_leaves(out)
+    same = len(got) == len(leaves) and all(
+        a.dtype == np.float32 and a.shape == tuple(b.shape)
+        and np.array_equal(a.view(np.uint32),
+                           b.cpu().numpy().view(np.uint32))
+        for a, b in zip(got, leaves))
+    res = dict(elements=n, bytes=len(blob), encode_s=encode_s,
+               decode_s=decode_s, decode_writable_s=decode_writable_s,
+               bit_identical=same)
+    print(f"wire v2: {n} f32 params from the card, {len(blob)} bytes; "
+          f"encode {1e3 * encode_s:.1f} ms, decode {1e3 * decode_s:.3f} ms "
+          f"(zero-copy), {1e3 * decode_writable_s:.1f} ms (writable); "
+          f"bit-identical {same}")
+    check(same, "the params did not round-trip the v2 wire bit for bit")
+    return res
 
 
 def phase_times(fa, torch, dev):
@@ -518,7 +722,7 @@ def phase_profile(ft, torch, eng_state, run):
         if "flash_fwd_kernel" in name:
             return "flash kernel, CUDA cores (attention forward)"
         if "f32f32" in name or "sgemm" in name:
-            return "f32 GEMMs (attention backward; the model's too in f32)"
+            return "f32 GEMMs (plain attention; the model's too in f32)"
         if "gemm" in name or "nvjet" in name or "xmma" in name:
             return "bf16 GEMMs (model matmuls)"
         return "elementwise and reductions"
@@ -1359,6 +1563,21 @@ def main(argv: list[str]) -> int:
     analysis = phase_analysis(fa, torch, dev, fedavg_state,
                               profile="--profile" in argv)
     del fedavg_state
+    # the ring path: the default config in bf16 and f32, then 4 shards
+    ring, wire_params = {}, None
+    for dtype_name, shards in RING_RUNS:
+        name = f"{dtype_name}_P{shards}"
+        ring[name], eng_state = phase_ring(fa, ft, torch, dtype_name,
+                                           shards)
+        if "--profile" in argv:
+            prof[f"ring_{name}"] = phase_profile(ft, torch, eng_state,
+                                                 f"ring {name}")
+        if wire_params is None:  # the default config's, in bf16 compute
+            wire_params = eng_state[1]
+    del eng_state
+    parallel_ops = phase_parallel_ops(torch, dev)
+    wire = phase_wire(torch, wire_params)
+    del wire_params
     print(f"fedavg-cnn: {fedavg['fused_ms_per_round']:.3f} ms/round fused "
           f"({fedavg['rounds_per_s']:.1f} rounds/s), "
           f"{fedavg['eager_ms_per_round']:.3f} ms/round eager, "
@@ -1378,6 +1597,13 @@ def main(argv: list[str]) -> int:
     for name, r in analysis["programs"].items():
         print(f"analysis {name}: {r['ms']:.3f} ms per call, peak "
               f"{r['peak_mem_gb']:.3f} GB on {card}")
+    for name, r in ring.items():
+        print(f"ring {name}: {r['ms_per_round']:.1f} ms/round, "
+              f"{r['tokens_per_s']:.0f} tokens/s, peak "
+              f"{r['peak_mem_gb']:.2f} GB on {card}")
+    print(f"wire v2 round trip of {wire['elements']} params: encode "
+          f"{1e3 * wire['encode_s']:.1f} ms, decode "
+          f"{1e3 * wire['decode_s']:.3f} ms on {card}")
 
     # each kernel in the dtype whose path it serves (the CUDA-core kernel,
     # which serves neither at head dim 128, beside the TF32x3 one in f32)
@@ -1390,7 +1616,9 @@ def main(argv: list[str]) -> int:
                + _build.SOURCES[fa.KERNELS[variant].library],
         replaces="vantage6_tpu/ops/flash_attention.py:31",
         launches=sum(r["launches"][variant] for r in slice_res.values())
+        + sum(r["launches"][variant] for r in ring.values())
         + fedavg["launches"][variant],
+        launches_ring=sum(r["launches"][variant] for r in ring.values()),
         launches_fedavg=fedavg["launches"][variant],
         launches_compression=compression["launches"][variant],
         launches_analysis=analysis["launches"][variant],
@@ -1401,6 +1629,7 @@ def main(argv: list[str]) -> int:
     result = dict(card=card, kind=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   max_abs_err_cases=max_err_cases, slice=slice_res,
+                  ring=ring, parallel_ops=parallel_ops, wire=wire,
                   fedavg=fedavg, compression=compression, analysis=analysis,
                   kernels=kernels, times=times, profile=prof,
                   seconds=time.perf_counter() - t_start)
@@ -1408,7 +1637,9 @@ def main(argv: list[str]) -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
-    print(json.dumps({"slice": slice_res, "fedavg": fedavg,
+    print(json.dumps({"slice": slice_res, "ring": ring,
+                      "parallel_ops": parallel_ops, "wire": wire,
+                      "fedavg": fedavg,
                       "compression": compression, "analysis": analysis}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

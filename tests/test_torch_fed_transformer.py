@@ -2,10 +2,13 @@
 
 Both sides start from ONE JAX ``init_params`` (moved across by
 ``params_from_jax``) and train on identical tokens
-(``make_federated_tokens``, numpy). The JAX side runs the Pallas flash
-kernel in interpret mode; the port runs on the CPU, where its flash
-attention is the kernel's plain version.
+(``make_federated_tokens``, numpy). On the flash path the JAX side runs
+the Pallas flash kernel in interpret mode; the port runs on the CPU, where
+its flash attention is the kernel's plain version. On the ring path the
+JAX engine runs its ``shard_map`` over conftest's fake CPU devices (4
+stations x ``seq_devices``); the port lays the shards out on the CPU.
 """
+import dataclasses
 import importlib
 
 import jax
@@ -15,9 +18,9 @@ import optax
 import pytest
 import torch
 
-from vantage6_tpu_torch._tree import tree_leaves
+from vantage6_tpu_torch._tree import tree_leaves, tree_unflatten
 from vantage6_tpu_torch.fed.collectives import fed_mean
-from vantage6_tpu_torch.optim import adam, apply_updates
+from vantage6_tpu_torch.optim import adam, apply_updates, sgd
 from vantage6_tpu_torch.workloads import fed_transformer as TT
 
 JT = importlib.import_module("vantage6_tpu.workloads.fed_transformer")
@@ -207,9 +210,29 @@ class TestMakeEngine:
         with pytest.raises(ValueError, match="seq_devices == 1"):
             TT.make_engine(2, 2, tcfg, device="cpu")
 
-    def test_ring_is_not_ported_and_names_the_roadmap(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TT.make_engine(2, 1, TT.TransformerConfig(), device="cpu")
+    def test_default_config_runs_a_ring_round(self):
+        """``TransformerConfig()`` (attention "ring") trains a round."""
+        cfg = TT.TransformerConfig()
+        assert cfg.attention == "ring"
+        eng = TT.make_engine(2, 1, cfg, device="cpu")
+        tokens = eng.shard_tokens(
+            TT.make_federated_tokens(2, batch=1, seq_len=16, vocab=cfg.vocab))
+        params, opt = eng.init(0)
+        p1, _, loss = eng.round(params, opt, tokens, torch.ones(2))
+        assert np.isfinite(float(loss))
+        assert not torch.equal(p1["embed"], params["embed"])
+
+    def test_unknown_attention_rejected(self):
+        cfg = dataclasses.replace(_ring_cfgs()[1], attention="rign")
+        with pytest.raises(ValueError, match="unknown attention"):
+            TT.make_engine(1, 1, cfg, device="cpu")
+
+    def test_ring_sequence_not_divisible_by_shards_rejected(self):
+        eng = TT.make_engine(1, 3, _ring_cfgs()[1], device="cpu")
+        with pytest.raises(ValueError, match="not divisible"):
+            eng.shard_tokens(np.zeros((1, 1, 32), np.int32))
+        with pytest.raises(ValueError, match="max_len"):
+            eng.shard_tokens(np.zeros((1, 1, 66), np.int32))
 
     def test_sequence_longer_than_max_len_rejected(self):
         _, tcfg = _cfgs()
@@ -227,3 +250,135 @@ class TestMakeEngine:
         assert eng.device == torch.device("cpu")
         assert eng.mesh.station_axis_size == 1
         assert eng.mesh.stations_per_slot == 2
+
+    def test_init_params_without_cuda_and_device_raises(self, monkeypatch):
+        """``init_params`` follows the entry-point rule: CUDA by default,
+        the CPU only when asked for."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        _, tcfg = _cfgs(n_layers=1)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TT.init_params(torch.Generator().manual_seed(0), tcfg)
+        params = TT.init_params(torch.Generator().manual_seed(0), tcfg,
+                                device="cpu")
+        assert all(p.device.type == "cpu" for p in tree_leaves(params))
+
+
+# ---------------------------------------------------------------- ring path
+def _ring_cfgs(n_layers=2):
+    kw = dict(vocab=32, d_model=16, n_heads=2, n_layers=n_layers, max_len=64)
+    return (JT.TransformerConfig(**kw, attention="ring"),
+            TT.TransformerConfig(**kw, attention="ring"))
+
+
+def _ring_rounds(seq_devices, optimizer, rounds):
+    """``rounds`` federated rounds of the ring path on each side from one
+    JAX init, station 3 masked out; ``optimizer`` is "adam" (lr LR) or
+    "sgd" (sgd(1.0): a round's param change is minus the aggregated
+    gradient)."""
+    jcfg, tcfg = _ring_cfgs()
+    tokens = JT.make_federated_tokens(4, batch=2, seq_len=32, vocab=32)
+    jeng = JT.make_engine(n_stations=4, seq_devices=seq_devices, cfg=jcfg,
+                          lr=LR)
+    teng = TT.make_engine(4, seq_devices, tcfg, lr=LR, device="cpu")
+    if optimizer == "sgd":
+        jeng = dataclasses.replace(jeng, optimizer=optax.sgd(1.0))
+        teng = dataclasses.replace(teng, optimizer=sgd(1.0))
+    jparams, jopt = jeng.init(jax.random.key(0))
+    tparams = TT.params_from_jax(jax.device_get(jparams), "cpu")
+    topt = teng.optimizer.init(tparams)
+    jtok, ttok = jeng.shard_tokens(tokens), teng.shard_tokens(tokens)
+    out = [dict(jax=(jax.device_get(jparams), None),
+                torch=(tparams, None))]
+    for _ in range(rounds):
+        jparams, jopt, jloss = jeng.round(jparams, jopt, jtok,
+                                          jnp.asarray(MASK))
+        tparams, topt, tloss = teng.round(tparams, topt, ttok,
+                                          torch.tensor(MASK))
+        out.append(dict(jax=(jax.device_get(jparams), float(jloss)),
+                        torch=(tparams, float(tloss))))
+    return out
+
+
+@pytest.fixture(scope="module", params=[1, 2], ids=["P1", "P2"])
+def ring_adam(request):
+    return request.param, _ring_rounds(request.param, "adam", 2)
+
+
+@pytest.mark.parametrize("r", [1, 2])
+def test_ring_round_loss_matches_jax(ring_adam, r):
+    _, rounds = ring_adam
+    jl, tl = rounds[r]["jax"][1], rounds[r]["torch"][1]
+    assert np.isfinite(tl)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("r", [1, 2])
+def test_ring_round_params_match_jax(ring_adam, r):
+    """Held to lr / 1000 per entry, as the flash path's params are."""
+    _, rounds = ring_adam
+    jp, tp = rounds[r]["jax"][0], rounds[r]["torch"][0]
+    for a, b in zip(jax.tree.leaves(jp), tree_leaves(tp)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=LR / 1000)
+
+
+@pytest.mark.parametrize("seq_devices", [1, 2])
+def test_ring_aggregated_gradient_matches_jax_with_factor_p(seq_devices):
+    """Under sgd(1.0) one round moves the params by minus the aggregated
+    gradient. Both engines' moves agree, and both are ``seq_devices``
+    times the gradient of the round's own loss: the reference's factor,
+    which the port reproduces on purpose."""
+    rounds = _ring_rounds(seq_devices, "sgd", 1)
+    p0, _ = rounds[0]["torch"]
+    j1, t1 = rounds[1]["jax"][0], rounds[1]["torch"][0]
+    moves = []
+    for a0, a, b in zip(tree_leaves(p0), jax.tree.leaves(j1),
+                        tree_leaves(t1)):
+        jmove = a0.numpy() - np.asarray(a)
+        tmove = a0.numpy() - b.numpy()
+        np.testing.assert_allclose(tmove, jmove, rtol=1e-4, atol=1e-8)
+        moves.append(tmove)
+    # the gradient of the mean of the stations' losses, by autograd alone
+    _, tcfg = _ring_cfgs()
+    tokens = torch.from_numpy(
+        JT.make_federated_tokens(4, batch=2, seq_len=32, vocab=32)).long()
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(p0)]
+    params = tree_unflatten(p0, leaves)
+    w = torch.tensor(MASK)
+    loss = sum(w[s] * TT.loss_local(params, tokens[s], tcfg, seq_devices)
+               for s in range(4)) / w.sum()
+    grads = torch.autograd.grad(loss, leaves)
+    for move, g in zip(moves, grads):
+        np.testing.assert_allclose(move, seq_devices * g.numpy(), rtol=1e-4,
+                                   atol=1e-8)
+
+
+def test_ring_remat_matches_plain():
+    tokens = TT.make_federated_tokens(2, batch=2, seq_len=16, vocab=32)
+    outs = {}
+    for remat in (False, True):
+        tcfg = dataclasses.replace(_ring_cfgs()[1], remat=remat)
+        eng = TT.make_engine(2, 2, tcfg, device="cpu")
+        params, opt = eng.init(torch.Generator().manual_seed(0))
+        p1, _, loss = eng.round(params, opt, eng.shard_tokens(tokens),
+                                torch.ones(2))
+        outs[remat] = (float(loss), p1)
+    assert abs(outs[False][0] - outs[True][0]) < 1e-6
+    for a, b in zip(tree_leaves(outs[False][1]), tree_leaves(outs[True][1])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_ring_p1_loss_equals_flash_loss():
+    """At one shard the ring computes the flash path's loss."""
+    _, fcfg = _cfgs()
+    _, rcfg = _ring_cfgs()
+    tokens = TT.make_federated_tokens(2, batch=2, seq_len=32, vocab=32)
+    params = TT.init_params(torch.Generator().manual_seed(5), rcfg,
+                            device="cpu")
+    losses = []
+    for cfg in (fcfg, rcfg):
+        eng = TT.make_engine(2, 1, cfg, device="cpu")
+        opt = eng.optimizer.init(params)
+        losses.append(float(eng.round(params, opt, eng.shard_tokens(tokens),
+                                      torch.ones(2))[2]))
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-6)

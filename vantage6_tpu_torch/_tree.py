@@ -2,7 +2,7 @@
 
 The JAX package walks parameter trees with ``jax.tree.map``; the port keeps
 the same nested-dict layout (``{"embed", "pos", "layers": [...]}``) and
-walks it with these two functions instead of a private torch API.
+walks it with these functions instead of a private torch API.
 
 Dict keys are visited in sorted order, as ``jax.tree.leaves`` visits them,
 so a flat-packed tree (``fed.collectives.flatten_tree``) has the JAX
@@ -39,3 +39,22 @@ def tree_unflatten(like: Any, leaves: list[Any]) -> Any:
     order."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Any,
+                       path: str = "") -> Any:
+    """``tree_map`` of ``fn(path, leaf)``, each path written as
+    ``jax.tree_util.keystr`` writes it: ``['key']`` for a dict key,
+    ``[i]`` for a list or tuple index, ``.name`` for a named tuple's
+    field (``"['layers'][0]['w_up']"``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], f"{path}[{k!r}]")
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        if hasattr(tree, "_fields"):
+            return type(tree)(*(
+                tree_map_with_path(fn, x, f"{path}.{name}")
+                for name, x in zip(tree._fields, tree)))
+        return type(tree)(tree_map_with_path(fn, x, f"{path}[{i}]")
+                          for i, x in enumerate(tree))
+    return fn(path, tree)

@@ -1,0 +1,17 @@
+"""Parallelism beyond the station axis, on one GPU.
+
+- ring_attention: sequence (context) parallelism over stacked shards
+- tensor: Megatron-style tensor parallelism over a leading shard axis
+The station axis itself lives in core.mesh.
+"""
+from vantage6_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    reference_attention,
+    ring_attention,
+    ring_attention_sharded,
+)
+from vantage6_tpu_torch.parallel.tensor import (  # noqa: F401
+    column_parallel_dense,
+    row_parallel_dense,
+    shard_params_for_tp,
+    tp_mlp,
+)

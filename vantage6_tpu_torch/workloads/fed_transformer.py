@@ -6,10 +6,18 @@ trains on its own token shard; per-station gradients are taken in isolation
 ``fed_mean`` — the only place station data mixes — and the server steps the
 shared model with Adam.
 
-Attention is ``"flash"`` (the hand-written CUDA kernel, ops.flash_attention;
-its plain version on CPU tensors) or ``"recompute"`` (the same memory
-profile without a kernel, ops.recompute_attention). ``"ring"`` (sequence
-parallelism across devices) is not ported yet; see ROADMAP.md.
+Attention is ``"ring"`` (the default, as in the reference: exact attention
+over ``seq_devices`` sequence shards, parallel.ring_attention, which lays
+the shards out on the one card as the stations fold into one slot),
+``"flash"`` (the hand-written CUDA kernel, ops.flash_attention; its plain
+version on CPU tensors) or ``"recompute"`` (the same memory profile
+without a kernel, ops.recompute_attention). The last two need the full
+sequence, ``seq_devices == 1``.
+
+The ring path keeps the reference's bookkeeping at ``seq_devices = P``:
+positions by global offset, each shard's last position without a target
+(T - P predictions a sequence), and an aggregated gradient of P times the
+gradient of that loss (see ``FedTransformer.station_grads``).
 
 Parameters keep the JAX layout (``qkv`` is ``[d, 3d]`` used as ``h @ W``),
 so ``params_from_jax``/``params_to_numpy`` move weights across without a
@@ -26,13 +34,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vantage6_tpu_torch._tree import tree_leaves, tree_map, tree_unflatten
-from vantage6_tpu_torch.core.mesh import FederationMesh
+from vantage6_tpu_torch.core.mesh import FederationMesh, resolve_device
 from vantage6_tpu_torch.fed import collectives
 from vantage6_tpu_torch.ops.flash_attention import (
     flash_attention,
     recompute_attention,
 )
 from vantage6_tpu_torch.optim import Adam, adam, apply_updates
+from vantage6_tpu_torch.parallel.ring_attention import ring_attention_sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +55,11 @@ class TransformerConfig:
     # matmuls run in `dtype`. Softmax statistics, layernorm and the loss
     # stay f32 either way.
     dtype: torch.dtype = torch.float32
-    # "flash": the CUDA flash kernel (ops.flash_attention). "recompute":
-    # flash-memory attention without a kernel (ops.recompute_attention).
-    # "ring" is the JAX package's sequence-parallel path, not ported yet.
+    # "ring": exact ring attention over the sequence shards
+    # (parallel.ring_attention; any seq_devices). "flash": the CUDA flash
+    # kernel (ops.flash_attention). "recompute": flash-memory attention
+    # without a kernel (ops.recompute_attention). The last two need
+    # seq_devices == 1 (enforced by make_engine).
     attention: str = "ring"
     # Drop every layer's activations on the forward pass and recompute them
     # during backward (torch.utils.checkpoint per layer block).
@@ -61,10 +72,12 @@ class TransformerConfig:
 
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig,
-                device: torch.device | str = "cpu") -> dict[str, Any]:
+                device: torch.device | str | None = None) -> dict[str, Any]:
     """Same shapes and scale (0.02 * N(0, 1)) as the JAX ``init_params``,
     drawn from ``generator`` (its own stream: jax.random cannot be
-    reproduced), in float32 on ``device``."""
+    reproduced), in float32 on ``device`` (CUDA unless ``"cpu"`` is asked
+    for)."""
+    device = resolve_device(device)
     s = 0.02
 
     def normal(*shape):
@@ -113,8 +126,13 @@ def forward_local(
     params: dict[str, Any],
     tokens_local: torch.Tensor,  # [B, T]
     cfg: TransformerConfig,
+    seq_shards: int = 1,
 ) -> torch.Tensor:
-    """Logits [B, T, V] for the full sequence on this device."""
+    """Logits [B, T, V] for a station's full sequence. Under ``"ring"``
+    the sequence is ``seq_shards`` contiguous shards whose attention spans
+    the whole sequence through the ring; every other layer acts on each
+    position alone, so it runs on the sequence unsplit, with each shard's
+    positions at its global offset."""
     b, t_local = tokens_local.shape
 
     def cast(w: torch.Tensor) -> torch.Tensor:
@@ -124,25 +142,24 @@ def forward_local(
     x = cast(params["embed"])[tokens_local]
     x = x + cast(params["pos"][:t_local])[None]
 
-    if cfg.attention == "flash":
-        attend = flash_attention
-    elif cfg.attention == "recompute":
-        attend = recompute_attention
-    else:
-        raise NotImplementedError(
-            f"attention={cfg.attention!r} is not ported yet (ROADMAP.md)"
-        )
+    def heads(z: torch.Tensor) -> torch.Tensor:  # [B, T, d] -> [B, T, H, Dh]
+        return z.reshape(b, t_local, cfg.n_heads, cfg.head_dim)
 
-    def heads(z: torch.Tensor) -> torch.Tensor:  # [B, T, d] -> [B, H, T, Dh]
-        z = z.reshape(b, t_local, cfg.n_heads, cfg.head_dim)
-        return z.transpose(1, 2).contiguous()
+    def attend(q, k, v):  # [B, T, H, Dh] each -> [B, T, H, Dh]
+        if cfg.attention == "ring":
+            return ring_attention_sharded(q, k, v, seq_shards, causal=True)
+        impl = (flash_attention if cfg.attention == "flash"
+                else recompute_attention)
+        # both want head-major [B, H, T, Dh]
+        q, k, v = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+        return impl(q, k, v, causal=True).transpose(1, 2)
 
     def layer_block(x, *layer_leaves):
         qkv_w, proj, w_up, w_down = (cast(w) for w in layer_leaves)
         h = _ln(x)
         q, k, v = (h @ qkv_w).split(cfg.d_model, dim=-1)
-        attn = attend(heads(q), heads(k), heads(v), causal=True)
-        x = x + attn.transpose(1, 2).reshape(b, t_local, cfg.d_model) @ proj
+        attn = attend(heads(q), heads(k), heads(v))
+        x = x + attn.reshape(b, t_local, cfg.d_model) @ proj
         h = _ln(x)
         return x + F.gelu(h @ w_up, approximate="tanh") @ w_down
 
@@ -159,12 +176,20 @@ def loss_local(
     params: dict[str, Any],
     tokens_local: torch.Tensor,
     cfg: TransformerConfig,
+    seq_shards: int = 1,
 ) -> torch.Tensor:
-    """Mean next-token cross-entropy: position t predicts t+1."""
+    """Mean next-token cross-entropy over all shards of the sequence.
+
+    Within a shard, position t predicts t+1; each shard's final token has
+    its target on the next shard, so that position has no prediction, as
+    in the reference (T/P - 1 predictions a shard)."""
     tokens_local = tokens_local.long()
-    logits = forward_local(params, tokens_local, cfg)
-    targets = tokens_local[:, 1:]
-    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    b, t = tokens_local.shape
+    logits = forward_local(params, tokens_local, cfg, seq_shards)
+    shape = (b, seq_shards, t // seq_shards)
+    logits = logits.reshape(*shape, -1)
+    targets = tokens_local.reshape(shape)[..., 1:]
+    logp = torch.log_softmax(logits[..., :-1, :].float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     return nll.sum() / nll.numel()
 
@@ -176,6 +201,7 @@ class FedTransformer:
     mesh: FederationMesh
     cfg: TransformerConfig
     optimizer: Adam
+    seq_devices: int = 1  # sequence shards of each station's sequences
 
     @property
     def device(self) -> torch.device:
@@ -195,17 +221,32 @@ class FedTransformer:
             raise ValueError(
                 f"sequence length {t} exceeds cfg.max_len={self.cfg.max_len}"
             )
+        if t % self.seq_devices:
+            raise ValueError(
+                f"sequence length {t} is not divisible by "
+                f"seq_devices={self.seq_devices}"
+            )
         return torch.as_tensor(np.asarray(tokens)).to(self.device).long()
 
     def station_grads(self, params: Any,
                       tokens: torch.Tensor) -> tuple[torch.Tensor, Any]:
         """Per-station (loss, grads), each station's backward taken alone,
-        stacked on a leading [S] axis."""
+        stacked on a leading [S] axis.
+
+        At ``seq_devices = P`` each station's gradient is P times the
+        gradient of its loss, as the reference's is: its ``loss_local``
+        psums the loss over the sequence shards
+        (``vantage6_tpu/workloads/fed_transformer.py:190-191``), the psum
+        transposes to a psum under ``shard_map``, and ``round`` then psums
+        the P shards' equal gradients (``:241``). The port reproduces that
+        on purpose (ROADMAP.md, queue 3)."""
+        p = self.seq_devices
 
         def one_station(tok, params):
-            leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-            loss = loss_local(leaves, tok, self.cfg)
-            grads = torch.autograd.grad(loss, tree_leaves(leaves))
+            leaves = tree_map(lambda x: x.detach().requires_grad_(), params)
+            loss = loss_local(leaves, tok, self.cfg, p)
+            # the reference's factor P, explicitly (see the docstring)
+            grads = torch.autograd.grad(p * loss, tree_leaves(leaves))
             return loss.detach(), tree_unflatten(params, list(grads))
 
         return self.mesh.fed_map(one_station, tokens,
@@ -237,7 +278,8 @@ def make_engine(
     device: str | torch.device | None = None,
 ) -> FedTransformer:
     """The engine on one card (``device``; CUDA unless ``"cpu"`` is asked
-    for). The S stations fold into the single device slot."""
+    for). The S stations fold into the single device slot, and each
+    station's ``seq_devices`` sequence shards are laid out on it."""
     cfg = cfg or TransformerConfig()
     if cfg.attention in ("flash", "recompute") and seq_devices != 1:
         raise ValueError(
@@ -245,14 +287,11 @@ def make_engine(
             f"device (seq_devices == 1, got {seq_devices}); use 'ring' for "
             "sequence-parallel runs"
         )
-    if cfg.attention not in ("flash", "recompute"):
-        raise NotImplementedError(
-            f"attention={cfg.attention!r} is not ported to the PyTorch "
-            "package yet; it is queued in ROADMAP.md (use 'flash' or "
-            "'recompute')"
-        )
+    if cfg.attention not in ("ring", "flash", "recompute"):
+        raise ValueError(f"unknown attention {cfg.attention!r}")
     mesh = FederationMesh(n_stations, device=device)
-    return FedTransformer(mesh=mesh, cfg=cfg, optimizer=adam(lr))
+    return FedTransformer(mesh=mesh, cfg=cfg, optimizer=adam(lr),
+                          seq_devices=seq_devices)
 
 
 def make_federated_tokens(
