@@ -33,7 +33,8 @@ Phases, each of which raises (exit code 1) on failure:
    CUDA-core kernel's on the same tensors, in turns (bf16: tensor-core;
    f32: TF32x3), their plain versions', the bound, and
    ``scaled_dot_product_attention`` in the same dtype as a yardstick (the
-   port never calls it);
+   port never calls it); then the CUDA-core kernel at the shape it
+   serves, [16, 8, 1024, 8] bf16 causal, the same figures;
 6. the flagship FedAvg-CNN at full size (the JAX package's benchmark
    config: 32 stations x 256 examples, Dirichlet 0.5, noise 2.0, 10 local
    steps of batch 32 at lr 0.05, server sgd(1.0), bf16 compute, 5 fused
@@ -92,11 +93,31 @@ Phases, each of which raises (exit code 1) on failure:
    the trained full-width params (105M f32, on the card) through the v2
    wire format and back bit for bit, encode and decode timed.
 
+10. the task plane at full width, the way a vantage6 user drives it: a
+   ``Federation`` built from ``FederationConfig.from_dict`` (no YAML), one
+   station per flagship shard of phase 6; ``central_fedavg`` for 5 rounds
+   through ``create_task`` (the central function in host mode, each
+   round's partials one device-mode subtask), its params equal to 5 eager
+   ``FedAvg.round`` calls under sgd(1.0) from the same init and draws,
+   its loss falling and its accuracy above 0.2, ms per round beside the
+   engine's eager round and peak memory; ``run_fused_rounds`` (K = 5)
+   with one station masked equal to ``engine.run_rounds`` with that mask,
+   rounds/s; ``central_average_device`` over phase 8's registry size
+   against a float64 numpy oracle, ms per call; ``aggregate_stacked``'s
+   three modes on one round's CNN deltas with one station offline (it is
+   excluded); a host-mode task over dicts of arrays at 0 and 8 executor
+   workers (equal results, ``task_timing``'s sum, max and straggler); a
+   checkpoint round trip of params, Adam state and generator state (bit
+   for bit, and 2 rounds after the restore equal to 2 uninterrupted); no
+   flash kernel may launch.
+
 ``--profile`` traces one more round of each run of phases 4 and 9
 (torch.profiler) and reports device time by kernel group and under the
 ``attention_fwd``/``attention_bwd`` profiler ranges, one fused round of
 phases 6 and 7 (dense and compressed) with the device's busy share, and
-one call of each analysis program of phase 8 (kernel time, launches).
+one call of each analysis program of phase 8 (kernel time, launches),
+and one runtime round and one eager round of phase 10 (device busy share,
+launches, the host's costliest functions).
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}`` line
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -623,50 +644,62 @@ def phase_wire(torch, params):
     return res
 
 
+# the shape the CUDA-core kernel serves (bf16 at head dim 8, below wgmma's
+# k16 depth): the main path's batch, heads and sequence
+D_CUDA_CORE = 8
+
+
 def phase_times(fa, torch, dev):
     """Each tensor-core kernel at the main path's shape, [16, 8, 1024, 128]
     causal, in the dtype it serves, and the CUDA-core kernel (the kernel
     before it) on the same tensors, timed in turns: bf16 with the
-    tensor-core kernel, f32 with the TF32x3 kernel. Returns
-    {dtype: {variant: figures}}."""
+    tensor-core kernel, f32 with the TF32x3 kernel. Then the CUDA-core
+    kernel alone at the shape it serves, [16, 8, 1024, 8] bf16 causal.
+    Returns {case: {variant: figures}}."""
     b, h, t, d = FULL["batch"], FULL["n_heads"], FULL["seq"], \
         FULL["d_model"] // FULL["n_heads"]
     g = torch.Generator(device=dev).manual_seed(2)
-    scale = d**-0.5
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res = {}
-    for name, dtype, peak, tol in (
-            ("bfloat16", torch.bfloat16, PEAK_BF16_FLOPS, BF16_TOL),
-            ("float32", torch.float32, PEAK_TF32_FLOPS, F32_TOL)):
-        new = MAIN_VARIANT[name]
-        q, k, v = (torch.randn(b, h, t, d, generator=g, device=dev)
+    for case, dtype, peak, tol, hd, variants in (
+            ("bfloat16", torch.bfloat16, PEAK_BF16_FLOPS, BF16_TOL, d,
+             ("cuda_core", MAIN_VARIANT["bfloat16"])),
+            ("float32", torch.float32, PEAK_TF32_FLOPS, F32_TOL, d,
+             ("cuda_core", MAIN_VARIANT["float32"])),
+            ("bfloat16_d8", torch.bfloat16, PEAK_BF16_FLOPS, BF16_TOL,
+             D_CUDA_CORE, ("cuda_core",))):
+        name = str(dtype).removeprefix("torch.")
+        scale = hd**-0.5
+        shape = f"[{b},{h},{t},{hd}]"
+        q, k, v = (torch.randn(b, h, t, hd, generator=g, device=dev)
                    .to(dtype) for _ in range(3))
         library_ms = cuda_ms(
             lambda: sdpa(q, k, v, is_causal=True, scale=scale), 20)
-        bound_ms, bound_by = attention_bound(b, h, t, t, d, 0, 0, True,
+        bound_ms, bound_by = attention_bound(b, h, t, t, hd, 0, 0, True,
                                              q.element_size(), peak)
         group = {}
-        for variant in ("cuda_core", new):
+        for variant in variants:
             spec = fa.KERNELS[variant]
             out = fa.flash_forward_cuda(q, k, v, 0, 0, True, scale,
                                         variant=variant)
             err, lim = compare(fa, torch, out, q, k, v, 0, 0, True, scale,
                                variant, tol)
-            print(f"{variant} vs plain at the main path's shape "
-                  f"[{b},{h},{t},{d}] {name} causal: max_abs_err {err:.3e} "
-                  f"tol {lim:.3e}")
+            print(f"{variant} vs plain at {shape} {name} causal: "
+                  f"max_abs_err {err:.3e} tol {lim:.3e}")
             plain_ms = cuda_ms(
                 lambda: fa.kernel_reference(q, k, v, 0, 0, True, scale,
                                             spec.block_q, spec.block_k),
                 3, warmup=1)
-            group[variant] = dict(dtype=name, max_abs_err=err, ms=[],
-                                  plain_ms=plain_ms, library_ms=library_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by)
+            group[variant] = dict(dtype=name, shape=shape, max_abs_err=err,
+                                  ms=[], plain_ms=plain_ms,
+                                  library_ms=library_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by)
         if dtype == torch.float32:
             # the least time of three TF32 passes at the TF32 peak
-            group[new]["tf32x3_floor_ms"] = attention_bound(
-                b, h, t, t, d, 0, 0, True, 4, peak / TF32_PASSES)[0]
-        for variant in ("cuda_core", new, new, "cuda_core"):
+            group[variants[1]]["tf32x3_floor_ms"] = attention_bound(
+                b, h, t, t, hd, 0, 0, True, 4, peak / TF32_PASSES)[0]
+        # in turns: a, b, b, a (a, a for one variant)
+        for variant in variants + variants[::-1]:
             group[variant]["ms"].append(cuda_ms(
                 lambda: fa.flash_forward_cuda(q, k, v, 0, 0, True, scale,
                                               variant=variant), 20))
@@ -674,12 +707,12 @@ def phase_times(fa, torch, dev):
             r["ms_runs"], r["ms"] = r["ms"], sum(r["ms"]) / len(r["ms"])
             floor = (f", 3xTF32 floor {r['tf32x3_floor_ms']:.4f} ms"
                      if "tf32x3_floor_ms" in r else "")
-            print(f"flash_attention_fwd {variant} [{b},{h},{t},{d}] {name} "
+            print(f"flash_attention_fwd {variant} {shape} {name} "
                   f"causal: kernel {r['ms']:.4f} ms (runs "
                   f"{r['ms_runs'][0]:.4f}, {r['ms_runs'][1]:.4f}), plain "
                   f"{r['plain_ms']:.4f} ms, sdpa {library_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by}){floor}")
-        res[name] = group
+        res[case] = group
     return res
 
 
@@ -1485,6 +1518,407 @@ def phase_analysis(fa, torch, dev, fedavg_state, profile=False):
     return dict(config=cfg, programs=res, launches=launches)
 
 
+# ------------------------------------------ phase 10: the task plane
+# the FedAvg flagship (phase 6's config) driven the way a vantage6 user
+# drives it: central_fedavg through Federation.create_task
+TASK_PLANE = dict(rounds=5, fused_rounds=5, masked_station=5,
+                  offline_station=7, host_workers=8, column=3, seed=0,
+                  timed_runs=3)
+
+
+def _host_moments(df):
+    """A plain-Python partial over a dict of arrays: per-feature sums and
+    sums of squares in float64, and the row count (no pandas)."""
+    x = df["x"]
+    return {"sum": np.sum(x, axis=0, dtype=np.float64).tolist(),
+            "sumsq": np.sum(np.square(x, dtype=np.float64), axis=0).tolist(),
+            "n": int(x.shape[0])}
+
+
+def _profile_round(torch, fn, label):
+    """One traced call of ``fn`` (a round): wall ms, the device's busy ms
+    and kernel launches, and the host's 8 costliest functions by own time
+    (cProfile, a second call)."""
+    import cProfile
+    import pstats
+
+    wall_ms, rows = trace_device(torch, fn)
+    busy_ms = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    host = sorted(((tt * 1e3, nc, f"{os.path.basename(fl)}:{ln}({name})")
+                   for (fl, ln, name), (_, nc, tt, _, _) in stats.items()),
+                  reverse=True)[:8]
+    print(f"profiled {label}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%) in {launches} "
+          f"launches; host own time:")
+    for ms, n, name in host:
+        print(f"  {ms:9.3f} ms {n:6d}x {name[:90]}")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, launches=launches,
+                host_top=[dict(ms=m, calls=n, name=k) for m, n, k in host])
+
+
+def phase_task_plane(fa, torch, dev, profile=False):
+    """Phase 10: the task plane at full width. (a) a Federation built from
+    FederationConfig.from_dict, one station per flagship shard; (b)
+    central_fedavg for 5 rounds through create_task (central in host mode,
+    partials in device mode) against 5 eager FedAvg.round calls; (c)
+    run_fused_rounds with one station masked against engine.run_rounds;
+    (d) central_average_device at the registry's size against float64
+    numpy; (e) aggregate_stacked's three modes on one round's deltas with
+    one station offline; (f) a host-mode task over dicts of arrays at 0 and
+    8 executor workers; (g) a checkpoint round trip. No flash kernel may
+    launch. With ``profile``, one traced runtime round and one eager round
+    (device busy share, launches, the host's costliest functions)."""
+    from vantage6_tpu_torch._tree import tree_leaves, tree_map
+    from vantage6_tpu_torch.algorithm.decorators import data
+    from vantage6_tpu_torch.core.config import FederationConfig
+    from vantage6_tpu_torch.fed.collectives import fed_mean
+    from vantage6_tpu_torch.optim import adam
+    from vantage6_tpu_torch.runtime import checkpoint as ckpt
+    from vantage6_tpu_torch.runtime.federation import (
+        Federation,
+        federation_from_datasets,
+    )
+    from vantage6_tpu_torch.utils.datasets import synthetic_image_classes
+    from vantage6_tpu_torch.workloads import average
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    cfg, tp = FEDAVG, TASK_PLANE
+    n_s, k, seed = cfg["stations"], tp["rounds"], tp["seed"]
+    sync = torch.cuda.synchronize
+    res, failed = {}, []
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    def engine(**kw):
+        return W.make_engine(n_stations=n_s, device=dev,
+                             local_steps=cfg["local_steps"],
+                             batch_size=cfg["batch"], local_lr=cfg["lr"],
+                             learning_stats=False, **kw)
+
+    # the main path's counts start here
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    # (a) the federation from a config dict (no YAML)
+    fed_cfg = FederationConfig.from_dict({
+        "federation": {"name": "fedavg-flagship", "executor_workers": 0},
+        "stations": [{"name": f"station_{i}", "organization": f"org_{i}",
+                      "databases": [{"label": "default", "type": "array"}]}
+                     for i in range(n_s)],
+    })
+    sx, sy, counts = W.make_federated_data(
+        n_s, n_per_station=cfg["per_station"], alpha=cfg["alpha"], seed=0,
+        noise=cfg["noise"])
+    sx, sy, counts = (t.to(dev) for t in (sx, sy, counts))
+    fed = Federation(fed_cfg, device=dev, algorithms={"fedavg": W})
+    fed.set_datasets("default", [
+        {"x": sx[i], "y": sy[i], "count": counts[i],
+         "sid": torch.tensor(i, dtype=torch.int32, device=dev)}
+        for i in range(n_s)])
+    print(f"task plane: federation {fed_cfg.name!r} of {fed.n_stations} "
+          f"stations on {fed.mesh.device}, executor_workers "
+          f"{fed_cfg.resolved_executor_workers()}")
+
+    # (b) central_fedavg through create_task, against eager engine rounds
+    kw = dict(local_steps=cfg["local_steps"], batch_size=cfg["batch"],
+              lr=cfg["lr"], seed=seed)
+
+    def central(n_rounds):
+        task = fed.create_task("fedavg", {"method": "central_fedavg",
+                                          "kwargs": dict(kw, n_rounds=n_rounds)},
+                               organizations=[0])
+        (out,) = fed.wait_for_results(task.id)
+        sync()
+        return task, out
+
+    eng = engine()
+    params0 = W.init_params(seed, device=dev)
+
+    def eager(n_rounds):
+        """n_rounds eager engine rounds with central_fedavg's draws, each
+        ended by a host pull of its loss (as central_fedavg's float())."""
+        p, o, out_losses = params0, eng.init(params0), []
+        for r in range(n_rounds):
+            p, o, loss, _ = eng.round(p, o, sx, sy, counts,
+                                      key=seed * 100003 + r)
+            out_losses.append(loss.item())
+        return p, out_losses
+
+    def timed(fn):
+        """(ms per round, peak GB, result) of fn(k), from a synchronised
+        start with the peak reset."""
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        result = fn(k)
+        sync()
+        return (1e3 * (time.perf_counter() - t0) / k,
+                torch.cuda.max_memory_allocated() / 1e9, result)
+
+    central(1)  # warm-up: lazy library handles, allocator
+    eager(1)
+    # in turns: eager, runtime, runtime, eager
+    e1_ms, eager_peak, (eager_params, eager_losses) = timed(eager)
+    r1_ms, runtime_peak, (task, out) = timed(central)
+    r2_ms, _, _ = timed(central)
+    e2_ms, _, _ = timed(eager)
+    runtime_ms, eager_ms = (r1_ms + r2_ms) / 2, (e1_ms + e2_ms) / 2
+    # what the task records keep on the card: each round's stacked result
+    retained_gb = sum(x.numel() * x.element_size()
+                      for t in fed.tasks.values()
+                      if t.stacked_result is not None
+                      for x in tree_leaves(t.stacked_result)) / 1e9
+    subtasks = [t for t in fed.tasks.values() if t.parent_id == task.id]
+    gate(task.status.value == "completed" and len(subtasks) == k
+         and all(len(t.runs) == n_s and t.is_finished for t in subtasks),
+         "central_fedavg did not complete one 32-run subtask a round")
+    err = _max_diff(torch, out["params"], eager_params)
+    loss_err = max(abs(a - b) for a, b in zip(out["losses"], eager_losses))
+    print(f"gate central_fedavg ({k} rounds through create_task) == {k} "
+          f"eager FedAvg.round under sgd(1.0), same init and draws: params "
+          f"max_abs_err {err:.3e}, losses {loss_err:.3e} (tolerance 0: the "
+          f"same ops)")
+    gate(err == 0 and loss_err == 0,
+         "central_fedavg differs from eager engine rounds")
+    losses = out["losses"]
+    ex, ey = synthetic_image_classes(FEDAVG_EVAL["n"], seed=FEDAVG_EVAL["seed"],
+                                     noise=FEDAVG_EVAL["noise"])
+    acc = W.evaluate(out["params"], ex, ey)
+    print(f"central_fedavg losses {[round(x, 4) for x in losses]}, accuracy "
+          f"{acc:.4f}")
+    gate(all(x == x for x in losses) and losses[-1] < losses[0],
+         f"central_fedavg loss did not fall: {losses}")
+    gate(acc > FEDAVG_MIN_ACCURACY,
+         f"central_fedavg accuracy {acc} <= {FEDAVG_MIN_ACCURACY}")
+    res["central_fedavg"] = dict(
+        ms_per_round=runtime_ms, runtime_runs_ms=[r1_ms, r2_ms],
+        eager_ms_per_round=eager_ms, eager_runs_ms=[e1_ms, e2_ms],
+        peak_mem_gb=runtime_peak, eager_peak_mem_gb=eager_peak,
+        retained_by_task_records_gb=retained_gb, losses=losses,
+        accuracy=acc, max_abs_err=err)
+    print(f"task plane round: {runtime_ms:.3f} ms/round through "
+          f"create_task (runs {r1_ms:.3f}, {r2_ms:.3f}; central host run + "
+          f"a device-mode subtask a round), engine eager round() "
+          f"{eager_ms:.3f} ms/round (runs {e1_ms:.3f}, {e2_ms:.3f}), in "
+          f"turns; peak {runtime_peak:.3f} GB (eager {eager_peak:.3f} GB); "
+          f"task records hold {retained_gb:.3f} GB of stacked results "
+          f"after {len(fed.tasks)} tasks")
+    if profile:
+        res["profile"] = {
+            "runtime_round": _profile_round(torch, lambda: central(1),
+                                            "runtime round (create_task)"),
+            "eager_round": _profile_round(torch, lambda: eager(1),
+                                          "engine eager round"),
+        }
+
+    # (c) run_fused_rounds with one station masked
+    feng = engine()
+    fed.mask_station(tp["masked_station"])
+    kf = tp["fused_rounds"]
+    first = fed.run_fused_rounds(feng, params0, sx, sy, counts, seed, kf)
+    fused = fed.run_fused_rounds(feng, params0, sx, sy, counts, seed, kf)
+    mask = fused["mask"]
+    direct = feng.run_rounds(params0, sx, sy, counts, seed, kf, mask=mask)
+    sync()
+    err = max(_max_diff(torch, fused["params"], direct[0]),
+              _max_diff(torch, fused["losses"], direct[2]),
+              _max_diff(torch, first["params"], fused["params"]))
+    print(f"gate run_fused_rounds (K = {kf}, station "
+          f"{tp['masked_station']} masked) == engine.run_rounds with that "
+          f"mask: max_abs_err {err:.3e} (tolerance 0); "
+          f"{fused['rounds_per_sec']:.1f} rounds/s "
+          f"({1e3 * fused['seconds'] / kf:.3f} ms/round, replayed)")
+    gate(err == 0 and float(mask.sum()) == n_s - 1
+         and mask[tp["masked_station"]].item() == 0,
+         "run_fused_rounds differs from engine.run_rounds")
+    fed.mask_station(tp["masked_station"], False)
+    res["run_fused_rounds"] = dict(
+        rounds_per_s=fused["rounds_per_sec"],
+        ms_per_round=1e3 * fused["seconds"] / kf,
+        first_dispatch_s=first["seconds"], max_abs_err=err)
+
+    # (e) aggregate_stacked's modes on one round's deltas, one station down
+    off = tp["offline_station"]
+    fed.set_station_online(off, False)
+    gen_u = torch.Generator(device=dev).manual_seed(7)
+    draws = torch.rand((n_s, cfg["local_steps"], cfg["batch"]),
+                       generator=gen_u, device=dev)
+    rt = fed.create_task("fedavg", {
+        "method": "partial_train", "args": [params0],
+        "kwargs": dict(local_steps=cfg["local_steps"],
+                       batch_size=cfg["batch"], lr=cfg["lr"], draws=draws)})
+    gate(rt.runs[off].status.value == "pending"
+         and rt.participation[off].item() == 0,
+         "the offline station's run is not pending and masked")
+    weights = rt.stacked_result["count"]
+    agg = {m: fed.aggregate_stacked(rt, weights=weights, agg_mode=m)
+           for m in ("replicated", "scattered", "scattered_bf16")}
+    keep = [i for i in range(n_s) if i != off]
+    others = fed_mean(tree_map(lambda x: x[keep], rt.stacked_result),
+                      weights=weights[keep])
+    def rel_err(a, b):
+        """The worst leaf's max |a - b| over its largest |b|."""
+        return max((x.float() - y.float()).abs().max().item()
+                   / max(y.abs().max().item(), 1e-30)
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    e_scat = _max_diff(torch, agg["scattered"], agg["replicated"])
+    e_bf16 = rel_err(agg["scattered_bf16"], agg["replicated"])
+    e_off = max(
+        (x - y).abs().max().item() / max(z.abs().max().item(), 1e-30)
+        for x, y, z in zip(tree_leaves(agg["replicated"]),
+                           tree_leaves(others),
+                           tree_leaves(rt.stacked_result)))
+    # bf16 keeps 8 significant bits: the rounded sum is within 2^-9 of
+    # each value; each leaf held to 2^-8 of its largest mean value
+    lim_bf16 = 2.0**-8
+    # an f32 sum of 31 or 32 weighted terms in another order: within 32
+    # f32 roundings (2^-19) of the largest term, doubled
+    lim_off = 2.0**-18
+    print(f"gate aggregate_stacked on one round's CNN deltas (station {off} "
+          f"offline): scattered vs replicated max_abs_err {e_scat:.3e} (tol "
+          f"1e-5); scattered_bf16 vs replicated {e_bf16:.3e} of each leaf's "
+          f"largest mean (tol 2^-8); replicated vs the mean over the other "
+          f"{n_s - 1} {e_off:.3e} of each leaf's largest station value (tol "
+          f"2^-18)")
+    gate(e_scat <= 1e-5, "scattered aggregation differs from replicated")
+    gate(e_bf16 <= lim_bf16, "scattered_bf16 aggregation out of tolerance")
+    gate(e_off <= lim_off, "the offline station was not excluded")
+    fed.set_station_online(off, True)  # drains the owed run
+    gate(rt.participation.sum().item() == n_s and rt.is_finished,
+         "the reconnected station's run did not drain")
+    res["aggregate_stacked"] = dict(scattered_err=e_scat, bf16_rel_err=e_bf16,
+                                    offline_rel_err=e_off)
+    del fed, agg, others, rt
+
+    # (d) central_average_device at the registry's size
+    an = ANALYSIS
+    g = torch.Generator(device=dev).manual_seed(an["seed"])
+    reg = torch.randn((an["stations"], an["rows"], an["features"]),
+                      generator=g, device=dev) * 10.0 + 50.0
+    col = tp["column"]
+    oracle = float(np.mean(reg[:, :, col].double().cpu().numpy(),
+                           dtype=np.float64))
+    afed = federation_from_datasets([{"x": reg[i]} for i in range(
+        an["stations"])], {"avg": average}, device=dev, executor_workers=0)
+
+    def avg_call():
+        t = afed.create_task("avg", {"method": "central_average_device",
+                                     "kwargs": {"column_index": col}},
+                             organizations=[0])
+        return afed.wait_for_results(t.id)[0]
+
+    avg_ms, avg_runs, got = median_ms(torch, avg_call, tp["timed_runs"])
+    rel = abs(got["average"] - oracle) / abs(oracle)
+    print(f"gate central_average_device over {an['stations']} x "
+          f"{an['rows']} x {an['features']} f32: average "
+          f"{got['average']:.7f} vs float64 oracle {oracle:.7f}, relative "
+          f"{rel:.2e} (tol 1e-6), count {got['count']}; {avg_ms:.3f} ms per "
+          f"call (runs {[round(x, 3) for x in avg_runs]})")
+    gate(rel <= 1e-6 and got["count"] == an["stations"] * an["rows"],
+         "central_average_device disagrees with the float64 oracle")
+    res["central_average_device"] = dict(ms=avg_ms, runs_ms=avg_runs,
+                                         relative_err=rel)
+    del afed
+
+    # (f) a host-mode task over dicts of arrays, 0 and 8 executor workers
+    host = [{"x": reg[i].cpu().numpy()} for i in range(an["stations"])]
+    del reg
+    partial = data(1)(_host_moments)
+    host_res = {}
+    for workers in (0, tp["host_workers"]):
+        hfed = federation_from_datasets(host, {"host": {"moments": partial}},
+                                        device=dev, executor_workers=workers)
+        try:
+            def host_call():
+                t = hfed.create_task("host", {"method": "moments"})
+                return t, hfed.wait_for_results(t.id)
+
+            ms, runs, (t, results) = median_ms(torch, host_call,
+                                               tp["timed_runs"])
+            timing = hfed.task_timing(t.id)
+        finally:
+            hfed.close()
+        host_res[workers] = dict(ms=ms, runs_ms=runs, results=results,
+                                 sum_exec_s=timing["sum_exec_s"],
+                                 max_exec_s=timing["max_exec_s"],
+                                 straggler_station=timing["straggler_station"])
+        print(f"host task at executor_workers={workers}: {ms:.3f} ms per "
+              f"round (runs {[round(x, 3) for x in runs]}); task_timing sum "
+              f"{1e3 * timing['sum_exec_s']:.3f} ms, max "
+              f"{1e3 * timing['max_exec_s']:.3f} ms, straggler station "
+              f"{timing['straggler_station']}")
+    seq, pool = host_res[0], host_res[tp["host_workers"]]
+    gate(seq["results"] == pool["results"]
+         and len(seq["results"]) == an["stations"],
+         "pooled host results differ from sequential ones")
+    gate(all(r["sum_exec_s"] >= r["max_exec_s"] > 0
+             and 0 <= r["straggler_station"] < an["stations"]
+             for r in host_res.values()), "task_timing is incomplete")
+    res["host"] = {str(w): {k2: v for k2, v in r.items() if k2 != "results"}
+                   for w, r in host_res.items()}
+
+    # (g) a checkpoint round trip: params, Adam state, generator state
+    aeng = engine(server_optimizer=adam(1e-3))
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def adam_rounds(p, o, g, n):
+        for _ in range(n):
+            p, o, _, _ = aeng.round(p, o, sx, sy, counts, g)
+        return p, o
+
+    p2, o2 = adam_rounds(params0, aeng.init(params0), gen, 2)
+    saved_rng = gen.get_state()
+    ck_dir = os.path.join(HERE, "chiprun_out", "task_plane_ckpt")
+    mgr = ckpt.CheckpointManager(ck_dir)
+    try:
+        mgr.save(ckpt.TrainState(p2, o2, 2, gen))
+        straight = adam_rounds(p2, o2, gen, 2)[0]
+        back = mgr.restore(device=dev)
+    finally:
+        import shutil
+
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    bit = (_max_diff(torch, back.params, p2) == 0
+           and _max_diff(torch, back.opt_state.mu, o2.mu) == 0
+           and _max_diff(torch, back.opt_state.nu, o2.nu) == 0
+           and int(back.opt_state.count) == int(o2.count)
+           and torch.equal(back.rng_state, saved_rng)
+           and all(x.device == p2["Dense_1"]["kernel"].device
+                   for x in tree_leaves(back.params)))
+    resumed = adam_rounds(back.params, back.opt_state,
+                          back.generator(dev), 2)[0]
+    err = _max_diff(torch, resumed, straight)
+    print(f"gate checkpoint round trip (params, Adam state, generator "
+          f"state): bit-identical {bit}; 2 rounds after the restore vs 2 "
+          f"uninterrupted: max_abs_err {err:.3e} (tolerance 0)")
+    gate(bit, "the checkpoint round trip is not bit-identical")
+    gate(err == 0, "rounds after a restore differ from uninterrupted ones")
+    res["checkpoint"] = dict(bit_identical=bit, resume_err=err)
+
+    torch.backends.cudnn.deterministic = deterministic
+    sync()
+    launches = dict(fa.flash_forward_cuda.variant_launches)
+    res["launches"] = launches
+    print(f"task plane flash launches: {launches} (0 expected: FedAvg's "
+          f"CNN and the collectives)")
+    gate(sum(launches.values()) == 0,
+         f"the task plane launched a flash kernel: {launches}")
+    check(not failed, "task plane gates failed: " + "; ".join(failed))
+    return res
+
+
 def _numpy_irls(family, x, y, n_iter=50):
     """Pooled float64 IRLS in numpy, to convergence (the oracle)."""
     beta = np.zeros(x.shape[1])
@@ -1578,6 +2012,8 @@ def main(argv: list[str]) -> int:
     parallel_ops = phase_parallel_ops(torch, dev)
     wire = phase_wire(torch, wire_params)
     del wire_params
+    task_plane = phase_task_plane(fa, torch, dev,
+                                  profile="--profile" in argv)
     print(f"fedavg-cnn: {fedavg['fused_ms_per_round']:.3f} ms/round fused "
           f"({fedavg['rounds_per_s']:.1f} rounds/s), "
           f"{fedavg['eager_ms_per_round']:.3f} ms/round eager, "
@@ -1604,12 +2040,27 @@ def main(argv: list[str]) -> int:
     print(f"wire v2 round trip of {wire['elements']} params: encode "
           f"{1e3 * wire['encode_s']:.1f} ms, decode "
           f"{1e3 * wire['decode_s']:.3f} ms on {card}")
+    tp = task_plane
+    print(f"task plane: central_fedavg "
+          f"{tp['central_fedavg']['ms_per_round']:.3f} ms/round through "
+          f"create_task, engine eager "
+          f"{tp['central_fedavg']['eager_ms_per_round']:.3f} ms/round, "
+          f"fused (run_fused_rounds) "
+          f"{tp['run_fused_rounds']['ms_per_round']:.3f} ms/round, peak "
+          f"{tp['central_fedavg']['peak_mem_gb']:.3f} GB (eager "
+          f"{tp['central_fedavg']['eager_peak_mem_gb']:.3f} GB); "
+          f"central_average_device "
+          f"{tp['central_average_device']['ms']:.3f} ms per call; host task "
+          f"{tp['host']['0']['ms']:.3f} ms sequential, "
+          f"{tp['host'][str(TASK_PLANE['host_workers'])]['ms']:.3f} ms at "
+          f"{TASK_PLANE['host_workers']} workers on {card}")
 
-    # each kernel in the dtype whose path it serves (the CUDA-core kernel,
-    # which serves neither at head dim 128, beside the TF32x3 one in f32)
+    # each kernel at the shape and dtype it serves: the tensor-core kernels
+    # at the main path's head dim 128, the CUDA-core one in bf16 at head
+    # dim 8
     names = {"tensor_core": ("flash_attention_fwd_tc", "bfloat16"),
              "tf32x3": ("flash_attention_fwd_tf32x3", "float32"),
-             "cuda_core": ("flash_attention_fwd", "float32")}
+             "cuda_core": ("flash_attention_fwd", "bfloat16_d8")}
     kernels = [dict(
         name=name, variant=variant, route="cuda",
         source="vantage6_tpu_torch/ops/csrc/"
@@ -1622,16 +2073,17 @@ def main(argv: list[str]) -> int:
         launches_fedavg=fedavg["launches"][variant],
         launches_compression=compression["launches"][variant],
         launches_analysis=analysis["launches"][variant],
-        **{key: times[dtype][variant][key] for key in (
-            "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
-    ) for variant, (name, dtype) in names.items()]
+        launches_task_plane=task_plane["launches"][variant],
+        **{key: times[case][variant][key] for key in (
+            "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+    ) for variant, (name, case) in names.items()]
     result = dict(card=card, kind=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   max_abs_err_cases=max_err_cases, slice=slice_res,
                   ring=ring, parallel_ops=parallel_ops, wire=wire,
                   fedavg=fedavg, compression=compression, analysis=analysis,
-                  kernels=kernels, times=times, profile=prof,
+                  task_plane=task_plane, kernels=kernels, times=times, profile=prof,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1640,7 +2092,8 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"slice": slice_res, "ring": ring,
                       "parallel_ops": parallel_ops, "wire": wire,
                       "fedavg": fedavg,
-                      "compression": compression, "analysis": analysis}))
+                      "compression": compression, "analysis": analysis,
+                      "task_plane": task_plane}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

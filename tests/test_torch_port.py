@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither ``jax``, the JAX
-package nor ``pandas`` (the card's machine has none), and its entry points
-do not fall back to the CPU."""
+package, ``pandas`` nor ``yaml`` (the card's machine has none of them),
+and its entry points do not fall back to the CPU."""
 import os
 import subprocess
 import sys
@@ -13,13 +13,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_and_chip_smoke_import_without_jax():
-    """In a fresh interpreter with ``jax`` and ``pandas`` blocked, every
-    module of the port and ``chip_smoke.py`` import, and no ``vantage6_tpu``
-    module is loaded."""
+    """In a fresh interpreter with ``jax``, ``pandas`` and ``yaml`` blocked,
+    every module of the port and ``chip_smoke.py`` import, and no
+    ``vantage6_tpu`` module is loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
         sys.modules["pandas"] = None
+        sys.modules["yaml"] = None
         sys.path.insert(0, sys.argv[1])
         import vantage6_tpu_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -37,8 +38,10 @@ def test_port_and_chip_smoke_import_without_jax():
                          capture_output=True, text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     # the transformer slice's 11 modules, FedAvg-CNN's 6, compression and
-    # the analysis programs' 6, and parallel/ and common/ (5)
-    assert int(res.stdout.strip().splitlines()[-1]) >= 28
+    # the analysis programs' 6, parallel/ and common/ (5), and the task
+    # plane's 19 (algorithm/ 6, runtime/ 7, common/ 3, config, guards,
+    # average)
+    assert int(res.stdout.strip().splitlines()[-1]) >= 47
 
 
 def test_mesh_without_cuda_requires_explicit_cpu(monkeypatch):
@@ -73,3 +76,31 @@ def test_analysis_entry_points_without_cuda_require_explicit_cpu(monkeypatch):
         logistic.init_logistic(0, 3)
     params = logistic.init_logistic(0, 3, device="cpu")
     assert all(p.device.type == "cpu" for p in params.values())
+
+
+def test_task_plane_without_cuda_requires_explicit_cpu(monkeypatch):
+    """``federation_from_datasets``/``MockAlgorithmClient`` without
+    ``device=`` raise when no CUDA is present; with ``device="cpu"`` the
+    stations' device-mode partials run on the CPU."""
+    import numpy as np
+
+    from vantage6_tpu_torch.algorithm import MockAlgorithmClient
+    from vantage6_tpu_torch.runtime.federation import federation_from_datasets
+    from vantage6_tpu_torch.workloads import average
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = [{"x": np.ones((3, 2), np.float32)}] * 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        federation_from_datasets(data, {"mock": average})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MockAlgorithmClient(datasets=[[{"database": d}] for d in data],
+                            module=average)
+    client = MockAlgorithmClient(datasets=[[{"database": d}] for d in data],
+                                 module=average, device="cpu")
+    assert client.device.type == "cpu"
+    task = client.task.create(
+        input_={"method": "central_average_device",
+                "kwargs": {"column_index": 0}}, organizations=[0])
+    assert client.result.get(task["id"]) == [{"average": 1.0, "count": 6}]
+    stacked = client.federation.stacked_data()
+    assert stacked["x"].device.type == "cpu"

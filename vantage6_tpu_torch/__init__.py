@@ -7,6 +7,8 @@ points run on CUDA unless the caller passes ``device="cpu"``.
 
 __version__ = "0.1.0"
 
+from vantage6_tpu_torch.common.enums import RunStatus, TaskStatus  # noqa: F401
+from vantage6_tpu_torch.core.config import FederationConfig  # noqa: F401
 from vantage6_tpu_torch.core.mesh import FederationMesh, Station  # noqa: F401
 from vantage6_tpu_torch.fed.collectives import fed_mean, fed_sum  # noqa: F401
 from vantage6_tpu_torch.ops.flash_attention import flash_attention  # noqa: F401

@@ -316,6 +316,26 @@ def all_gather_stations(mesh: "FederationMesh",
     return flat
 
 
+def fed_mean_scattered_tree(
+    mesh: "FederationMesh",
+    stacked: Pytree,
+    weights: Any | None = None,
+    mask: Any | None = None,
+    comm_dtype: torch.dtype | None = None,
+) -> Pytree:
+    """Scattered mean -> all-gather -> the original pytree shape: f32
+    accumulation, ``comm_dtype`` (e.g. ``torch.bfloat16``) rounding the
+    summed vector as the wire would; result leaves are cast back to each
+    leaf's dtype."""
+    flat = all_gather_stations(
+        mesh,
+        fed_mean_scattered(mesh, stacked, weights=weights, mask=mask,
+                           comm_dtype=comm_dtype),
+    )
+    template = tree_map(lambda x: x[0], stacked)
+    return unflatten_like(template, flat)
+
+
 # --------------------------------------------------------------------------
 # Secure aggregation: additive masking with exact modular-int cancellation.
 # Station i adds sum_{j>i} PRG(k_ij) - sum_{j<i} PRG(k_ji) to its quantized

@@ -145,6 +145,41 @@ class AsyncRoundSpec:
                          stale)
 
 
+def indices_from_uniform(u: torch.Tensor, counts: torch.Tensor
+                         ) -> torch.Tensor:
+    """Example indices from uniform draws ``u`` in [0, 1): ``floor(u *
+    max(count, 1))``, clamped below ``max(count, 1)``, so padded rows are
+    never drawn. ``counts`` broadcasts against ``u`` (``[S, 1, 1]`` for a
+    round's ``[S, local_steps, batch]`` draws, a scalar for one
+    station's)."""
+    safe = torch.clamp_min(counts.to(torch.int64), 1)
+    idx = (u * safe.to(torch.float32)).to(torch.int64)
+    return torch.minimum(idx, safe - 1)
+
+
+def local_sgd(
+    loss_fn: LossFn,
+    x: torch.Tensor,       # [n_pad, ...] one station's (padded) examples
+    y: torch.Tensor,       # [n_pad, ...]
+    idx: torch.Tensor,     # [local_steps, batch] its batch indices
+    params: Pytree,        # the global model
+    lr: float,
+) -> tuple[Pytree, torch.Tensor]:
+    """One station's local training: a step of minibatch SGD (every example
+    weighted 1) for each row of ``idx``, from ``params``. Returns (delta,
+    mean loss). vmap-able: the engine's rounds and the reference-shaped
+    ``partial_train`` both run it under ``fed_map(batched=True)``."""
+    w = torch.ones(idx.shape[-1], dtype=torch.float32, device=x.device)
+    grad_fn = torch.func.grad_and_value(loss_fn)
+    p, losses = params, []
+    for i in range(idx.shape[0]):
+        grads, loss = grad_fn(p, x[idx[i]], y[idx[i]], w)
+        p = tree_map(lambda a, g: a - lr * g, p, grads)
+        losses.append(loss)
+    delta = tree_map(torch.sub, p, params)
+    return delta, torch.stack(losses).mean()
+
+
 class FedAvg:
     """Runs federated-averaging rounds on a one-GPU FederationMesh."""
 
@@ -177,16 +212,8 @@ class FedAvg:
     ) -> tuple[Pytree, torch.Tensor]:
         """``local_steps`` of minibatch SGD from the global params; returns
         (delta, mean loss). Runs per station inside ``fed_map``."""
-        spec = self.spec
-        w = torch.ones(spec.batch_size, dtype=torch.float32, device=x.device)
-        grad_fn = torch.func.grad_and_value(spec.loss_fn)
-        p, losses = params, []
-        for i in range(spec.local_steps):
-            grads, loss = grad_fn(p, x[idx[i]], y[idx[i]], w)
-            p = tree_map(lambda a, g: a - spec.local_lr * g, p, grads)
-            losses.append(loss)
-        delta = tree_map(torch.sub, p, params)
-        return delta, torch.stack(losses).mean()
+        return local_sgd(self.spec.loss_fn, x, y, idx, params,
+                         self.spec.local_lr)
 
     # ----------------------------------------------------------------- round
     def _round_impl(
@@ -283,11 +310,9 @@ class FedAvg:
         """One round's ``[S, local_steps, batch]`` indices, uniform in
         ``[0, max(count, 1))`` for each station."""
         spec = self.spec
-        safe = torch.clamp_min(counts.to(torch.int64), 1).reshape(-1, 1, 1)
         u = torch.rand((counts.shape[0], spec.local_steps, spec.batch_size),
                        generator=gen, device=self.device)
-        idx = (u * safe.to(torch.float32)).to(torch.int64)
-        return torch.minimum(idx, safe - 1)
+        return indices_from_uniform(u, counts.reshape(-1, 1, 1))
 
     def draw_batch_indices(self, counts: Any, key: Key,
                            n_rounds: int = 1) -> torch.Tensor:

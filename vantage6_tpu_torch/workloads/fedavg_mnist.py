@@ -8,8 +8,18 @@ stations, ``train_fedavg`` runs the fused rounds and ``evaluate`` scores a
 model. ``params_from_jax``/``params_to_numpy`` move the CNN's weights
 across; the layouts are the same, so they are plain copies.
 
-The reference-shaped ``partial_train``/``central_fedavg`` need the
-algorithm runtime and are not ported yet (ROADMAP.md queue 1 item 9).
+The reference-shaped algorithm, ``central_fedavg``, loops rounds of
+``client.task.create(partial_train)`` + ``wait_for_stacked_result`` +
+weighted average through the task plane (``runtime.federation``); each
+round's partials run as one batched program on the card. Random draws
+cannot be made inside that vmapped body, so the central loop draws each
+round's batch positions (uniforms ``[S, local_steps, batch]``) from a
+generator on the card seeded ``seed * 100003 + round`` and sends them
+with the params; each station picks its row by ``data_["sid"]`` and
+scales it by its own count. These are the draws ``FedAvg.round`` makes
+from a generator of the same seed, and ``partial_train`` runs the
+engine's ``local_sgd``, so a round of ``central_fedavg`` is exactly an
+eager ``round`` under ``sgd(1.0)``.
 """
 from __future__ import annotations
 
@@ -19,8 +29,15 @@ import numpy as np
 import torch
 
 from vantage6_tpu_torch._tree import tree_map
+from vantage6_tpu_torch.algorithm.decorators import algorithm_client, device_step
 from vantage6_tpu_torch.core.mesh import FederationMesh, resolve_device
-from vantage6_tpu_torch.fed.fedavg import FedAvg, FedAvgSpec
+from vantage6_tpu_torch.fed.collectives import fed_mean
+from vantage6_tpu_torch.fed.fedavg import (
+    FedAvg,
+    FedAvgSpec,
+    indices_from_uniform,
+    local_sgd,
+)
 from vantage6_tpu_torch.models.cnn import CNN, accuracy
 from vantage6_tpu_torch.utils.datasets import (
     image_classes,
@@ -147,3 +164,97 @@ def evaluate(params: Any, x: Any, y: Any) -> float:
     with torch.no_grad():
         logits = MODEL(params, torch.as_tensor(x, device=device))
         return float(accuracy(logits, torch.as_tensor(y, device=device)))
+
+
+# ----------------------------------------------- reference-shaped algorithm
+@device_step
+def partial_train(data_: Any, params: Any, local_steps: int = 10,
+                  batch_size: int = 32, lr: float = 0.05,
+                  round_seed: int = 0, draws: Any = None,
+                  batch_idx: Any = None) -> dict[str, Any]:
+    """One station's local training (device mode): global params in, delta
+    out. data_ = {"x": [n,...], "y": [n], "count": [], "sid": []}.
+
+    The batch positions come from ``draws`` (uniforms ``[S, local_steps,
+    batch]``, scaled by this station's count) or, port only, from
+    ``batch_idx`` (exact indices ``[S, local_steps, batch]``); each station
+    reads its row ``sid``. ``round_seed`` keeps the JAX signature: the
+    draws were made from it by the central loop."""
+    del round_seed
+    sid = data_["sid"].to(torch.int64)
+    if batch_idx is not None:
+        idx = batch_idx[sid]
+    elif draws is not None:
+        idx = indices_from_uniform(draws[sid], data_["count"])
+    else:
+        raise ValueError("partial_train needs draws or batch_idx")
+    if tuple(idx.shape) != (local_steps, batch_size):
+        raise ValueError(
+            f"a station's batch positions must be ({local_steps}, "
+            f"{batch_size}), got {tuple(idx.shape)}"
+        )
+    delta, loss = local_sgd(weighted_ce_loss, data_["x"], data_["y"], idx,
+                            params, lr)
+    return {"delta": delta, "count": data_["count"], "loss": loss}
+
+
+def _init_cnn(seed: int, device: torch.device) -> Any:
+    return init_params(seed, device=device)
+
+
+@algorithm_client
+def central_fedavg(client: Any, n_rounds: int = 5, local_steps: int = 10,
+                   batch_size: int = 32, lr: float = 0.05,
+                   seed: int = 0, init_params: Any = None,
+                   batch_idx: Any = None) -> dict[str, Any]:
+    """Reference-shaped central loop: subtask per round, aggregate on device.
+
+    Ports the v6 FedAvg central-function pattern; `wait_for_stacked_result`
+    replaces seconds of HTTPS polling with an on-device stacked pytree.
+    Port only: ``init_params`` injects the starting weights (else
+    ``init_params(seed)``), and ``batch_idx`` the batch indices
+    (``[S, local_steps, batch]`` for every round, or ``[n_rounds, S,
+    local_steps, batch]``) instead of drawing them."""
+    device = client.device
+    params = (_init_cnn(seed, device) if init_params is None
+              else tree_map(lambda x: torch.as_tensor(x, device=device),
+                            init_params))
+    orgs = [o["id"] for o in client.organization.list()]
+    shape = (len(orgs), local_steps, batch_size)
+    if batch_idx is not None:
+        batch_idx = torch.as_tensor(batch_idx, device=device)
+        if tuple(batch_idx.shape) == shape:
+            batch_idx = batch_idx.expand((n_rounds,) + shape)
+        if tuple(batch_idx.shape) != (n_rounds,) + shape:
+            raise ValueError(f"batch_idx must be {shape} or "
+                             f"{(n_rounds,) + shape}, got "
+                             f"{tuple(batch_idx.shape)}")
+    losses = []
+    for r in range(n_rounds):
+        round_seed = seed * 100003 + r
+        if batch_idx is None:
+            gen = torch.Generator(device=device).manual_seed(round_seed)
+            given = {"draws": torch.rand(shape, generator=gen, device=device)}
+        else:
+            given = {"batch_idx": batch_idx[r]}
+        task = client.task.create(
+            input_={
+                "method": "partial_train",
+                "args": [params],
+                "kwargs": {
+                    "local_steps": local_steps,
+                    "batch_size": batch_size,
+                    "lr": lr,
+                    "round_seed": round_seed,
+                    **given,
+                },
+            },
+            organizations=orgs,
+            name=f"round_{r}",
+        )
+        stacked, mask = client.wait_for_stacked_result(task["id"])
+        weights = stacked["count"] * mask
+        mean_delta = fed_mean(stacked["delta"], weights=weights)
+        params = tree_map(lambda p, d: p + d, params, mean_delta)
+        losses.append(float(fed_mean(stacked["loss"], weights=weights)))
+    return {"params": params, "losses": losses}
