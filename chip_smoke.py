@@ -111,6 +111,34 @@ Phases, each of which raises (exit code 1) on failure:
    for bit, and 2 rounds after the restore equal to 2 uninterrupted); no
    flash kernel may launch.
 
+11. the observed, compressed planes on phase 6's flagship: a
+   ``Federation`` from ``FederationConfig.from_dict`` with the reference's
+   ``compression: {topk_ratio: 0.1, int8: true}``. (a) Two host-mode
+   tasks whose partial trains its station's CNN delta on the card and
+   returns ``client.compress_update(delta)``; the central carries each
+   payload over the v2 wire and ``decompress_update``s it: each decoded
+   delta equals the ``hat`` that ``compress_delta`` gives when the
+   exchange is replayed from its generator, bit for bit, ``new_ef == acc
+   - hat`` and the EF store holds it, exactly; the store advanced between
+   the tasks; the mean within 1e-6 of ``fed_mean`` over the hats; the
+   wire reduction at least 4x; ms per compress and decompress, encode
+   and decode ms. (b) ``central_fedavg``'s 5 rounds, each aggregated
+   through ``client.aggregate_stacked``, through ``create_task`` record
+   5 rounds in ``learning_history``,
+   each station's norm and cosine within 1e-5 of a float64 numpy
+   recompute from the pulled stacked results; the runtime round with
+   ``learning_stats`` on and off, in turns; ``FedAvg.attach_history``
+   over ``run_rounds`` (K = 5) records the returned stats exactly; the
+   fused round with and without a history, in turns. (c) The device
+   observatory on a fresh engine: the first ``run_rounds`` of a
+   signature is one ``device.compile`` span with warm-up and capture
+   ms and the memory the capture took, the same signature again none
+   and one counted dispatch, half the rows per station one retrace
+   naming ``[0][1]`` before -> after; ``profile_window`` around one
+   fused round writes a trace holding CUDA kernel events, noted in the
+   flight recorder. (d) ``FLIGHT.dump`` holds the task's ``learning``
+   record and the ``retrace`` note. No flash kernel may launch.
+
 ``--profile`` traces one more round of each run of phases 4 and 9
 (torch.profiler) and reports device time by kernel group and under the
 ``attention_fwd``/``attention_bwd`` profiler ranges, one fused round of
@@ -1919,6 +1947,472 @@ def phase_task_plane(fa, torch, dev, profile=False):
     return res
 
 
+# ------------------------------- phase 11: the observed, compressed planes
+# phase 6's flagship and phase 10's Federation with the reference's
+# compression config; the learning plane and the device observatory
+PLANES = dict(tasks=2, rounds=5, fused_rounds=5, seed=3, timed_turns=2,
+              rows_cut=2)
+PLANES_REL_TOL = 1e-6   # the mean of the decoded deltas vs fed_mean(hats)
+LEARNING_REL_TOL = 1e-5  # recorded station stats vs a float64 recompute
+MIN_WIRE_REDUCTION = 4.0  # the reference's bar (bench.py:2634)
+
+
+def _host_station_stats(torch, stacked, weights):
+    """float64 numpy station norms and cosines of one round's stacked
+    result, flat-packed as the learning record packs it (every leaf, in
+    sorted-key order), weighted by ``weights``."""
+    from vantage6_tpu_torch.fed.collectives import flatten_stacked
+
+    x = flatten_stacked(stacked).double().cpu().numpy()
+    w = weights.double().cpu().numpy()
+    norms = np.sqrt(np.sum(x * x, axis=1))
+    pooled = (w[:, None] * x).sum(axis=0) / w.sum()
+    gnorm = np.sqrt(np.sum(pooled * pooled))
+    cos = (x @ pooled) / np.maximum(norms * gnorm, 1e-12)
+    return x.shape, norms, cos
+
+
+def phase_planes(fa, torch, dev):
+    """Phase 11: the three host planes on phase 6's flagship and phase
+    10's Federation, built from FederationConfig.from_dict with the
+    reference's compression config. (a) a host-mode task whose partial
+    trains its station's CNN delta on the card and returns
+    client.compress_update(delta), twice, the central decompressing each
+    payload through the v2 wire; (b) central_fedavg's rounds aggregated
+    through client.aggregate_stacked, through create_task with
+    learning_stats on, and FedAvg.attach_history over run_rounds;
+    (c) the device observatory's compile, dispatch and retrace events and
+    a profile window around one fused round; (d) the flight recorder's
+    dump. No flash kernel may launch."""
+    from vantage6_tpu_torch._tree import tree_leaves, tree_map
+    from vantage6_tpu_torch.algorithm.context import current_environment
+    from vantage6_tpu_torch.algorithm.decorators import algorithm_client, data
+    from vantage6_tpu_torch.common.flight import FLIGHT, read_bundle
+    from vantage6_tpu_torch.common.serialization import (
+        deserialize,
+        serialize,
+    )
+    from vantage6_tpu_torch.core.config import FederationConfig
+    from vantage6_tpu_torch.fed import compression as C
+    from vantage6_tpu_torch.fed.collectives import fed_mean
+    from vantage6_tpu_torch.fed.fedavg import indices_from_uniform, local_sgd
+    from vantage6_tpu_torch.runtime import profiling as P
+    from vantage6_tpu_torch.runtime.federation import Federation
+    from vantage6_tpu_torch.runtime.tracing import TRACER
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    cfg, pl = FEDAVG, PLANES
+    n_s, seed = cfg["stations"], pl["seed"]
+    sync = torch.cuda.synchronize
+    res, failed = {}, []
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    FLIGHT.clear()
+    sx, sy, counts = W.make_federated_data(
+        n_s, n_per_station=cfg["per_station"], alpha=cfg["alpha"], seed=0,
+        noise=cfg["noise"])
+    sx, sy, counts = (t.to(dev) for t in (sx, sy, counts))
+    params0 = W.init_params(seed, device=dev)
+    deltas, compress_s, seqs, drawn = {}, [], {}, []
+
+    @data(1)
+    def partial_compressed(df, params, draws):
+        """One station's local SGD on the card, its delta compressed with
+        the station's error feedback for the uplink."""
+        env = current_environment()
+        sid = int(df["sid"])
+        idx = indices_from_uniform(draws[sid], df["count"])
+        delta, _ = local_sgd(W.weighted_ce_loss, df["x"], df["y"], idx,
+                             params, cfg["lr"])
+        deltas[sid] = delta
+        sync()
+        t0 = time.perf_counter()
+        out = env.client.compress_update(delta)
+        compress_s.append(time.perf_counter() - t0)
+        seqs[sid] = drawn[-1]  # the stations run one after another
+        return out
+
+    @algorithm_client
+    def central_compressed(client, params, draws):
+        """Fan out, then carry each payload over the v2 wire, decompress
+        it and take the mean of the dense deltas."""
+        orgs = [o["id"] for o in client.organization.list()]
+        task = client.task.create(
+            input_={"method": "partial_compressed",
+                    "kwargs": {"params": params, "draws": draws}},
+            organizations=orgs, name="compressed_uplink")
+        payloads = client.wait_for_results(task["id"])
+        t = {"encode": [], "decode": [], "decompress": []}
+        frames, dense = [], []
+        for p in payloads:
+            t0 = time.perf_counter()
+            blob = serialize(p, format="v2")
+            t1 = time.perf_counter()
+            back = deserialize(blob)
+            t2 = time.perf_counter()
+            dense.append(client.decompress_update(back))
+            sync()
+            t3 = time.perf_counter()
+            t["encode"].append(t1 - t0)
+            t["decode"].append(t2 - t1)
+            t["decompress"].append(t3 - t2)
+            frames.append(len(blob))
+        stacked = tree_map(lambda *xs: torch.stack(xs), *dense)
+        return {"task": task["id"], "dense": dense, "frames": frames,
+                "seconds": t, "mean": fed_mean(stacked)}
+
+    fed_cfg = FederationConfig.from_dict({
+        "federation": {"name": "fedavg-planes", "executor_workers": 0,
+                       "compression": dict(COMPRESSOR)},
+        "stations": [{"name": f"station_{i}", "organization": f"org_{i}",
+                      "databases": [{"label": "default", "type": "array"}]}
+                     for i in range(n_s)],
+    })
+    @algorithm_client
+    def central_learning(client, n_rounds):
+        """central_fedavg's rounds (its init, its draws, its partial_train),
+        each aggregated through client.aggregate_stacked with the counts as
+        weights: the call that records a round into the learning plane."""
+        params = W.init_params(seed, device=client.device)
+        orgs = [o["id"] for o in client.organization.list()]
+        shape = (len(orgs), cfg["local_steps"], cfg["batch"])
+        losses = []
+        for r in range(n_rounds):
+            gen = torch.Generator(device=client.device).manual_seed(
+                seed * 100003 + r)
+            task = client.task.create(
+                input_={"method": "partial_train", "args": [params],
+                        "kwargs": {"local_steps": cfg["local_steps"],
+                                   "batch_size": cfg["batch"],
+                                   "lr": cfg["lr"],
+                                   "draws": torch.rand(
+                                       shape, generator=gen,
+                                       device=client.device)}},
+                organizations=orgs, name=f"round_{r}")
+            stacked, _ = client.wait_for_stacked_result(task["id"])
+            mean = client.aggregate_stacked(task["id"],
+                                            weights=stacked["count"])
+            params = tree_map(lambda p, d: p + d, params, mean["delta"])
+            losses.append(float(mean["loss"]))
+        return {"params": params, "losses": losses}
+
+    fed = Federation(fed_cfg, device=dev, algorithms={
+        "planes": {"partial_compressed": partial_compressed,
+                   "central_compressed": central_compressed,
+                   "partial_train": W.partial_train,
+                   "central_learning": central_learning}})
+    fed.set_datasets("default", [
+        {"x": sx[i], "y": sy[i], "count": counts[i],
+         "sid": torch.tensor(i, dtype=torch.int32, device=dev)}
+        for i in range(n_s)])
+    dc = fed._delta_compressor
+    spec = dc.spec
+    # the replay below needs each exchange's number: record the numbers
+    # the compressor makes its noise generators for
+    exchange_generator = dc.generator
+
+    def recording_generator(seq, device):
+        drawn.append(seq)
+        return exchange_generator(seq, device)
+
+    dc.generator = recording_generator
+    print(f"planes: federation {fed_cfg.name!r} of {fed.n_stations} stations "
+          f"on {fed.mesh.device}, compressor {spec}")
+
+    # (a) the compressed host-plane exchange, 2 tasks
+    n_params = sum(x.numel() for x in tree_leaves(params0))
+    ef_before, outs, hats = {}, [], []
+    for t in range(pl["tasks"]):
+        names = [f"{i}:update" for i in range(n_s)]
+        ef_prev = {k: dc._ef[k].clone() if k in dc._ef else None
+                   for k in names}
+        ef_before[t] = ef_prev
+        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + t)
+        draws = torch.rand((n_s, cfg["local_steps"], cfg["batch"]),
+                           generator=gen, device=dev)
+        compress_s.clear()
+        task = fed.create_task("planes", {
+            "method": "central_compressed",
+            "kwargs": {"params": params0, "draws": draws}},
+            organizations=[0])
+        (out,) = fed.wait_for_results(task.id)
+        out["compress_s"] = list(compress_s)
+        outs.append(out)
+        # replay each station's exchange with compress_delta from its
+        # pre-task EF and its exchange's generator: the hats the payloads
+        # must decode to, and the EF the store must hold
+        bad_hat = bad_ef = bad_store = 0
+        t_hats = []
+        for i, name in enumerate(names):
+            flat = C.flatten_host(deltas[i])
+            ef = ef_prev[name]
+            _, hat, new_ef = C.compress_delta(
+                spec, flat, ef, key=exchange_generator(seqs[i], dev))
+            acc = flat if ef is None else flat + ef
+            bad_hat += not torch.equal(C.flatten_host(out["dense"][i]), hat)
+            bad_ef += not torch.equal(new_ef, acc - hat)
+            bad_store += not torch.equal(dc._ef[name], new_ef)
+            t_hats.append(hat)
+        hats.append(torch.stack(t_hats))
+        want = fed_mean(hats[-1])
+        got = C.flatten_host(out["mean"])
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"gate compressed exchange, task {t + 1}: decoded dense delta "
+              f"== compress_delta's hat bit for bit at {n_s - bad_hat} of "
+              f"{n_s} stations; new_ef == acc - hat exactly at "
+              f"{n_s - bad_ef}; EF store == new_ef at {n_s - bad_store}; "
+              f"mean of the decoded deltas vs fed_mean(hats) {rel:.3e} "
+              f"relative (tol {PLANES_REL_TOL:g})")
+        gate(bad_hat == 0, f"task {t + 1}: a decoded delta is not its hat")
+        gate(bad_ef == 0, f"task {t + 1}: new_ef != acc - hat")
+        gate(bad_store == 0, f"task {t + 1}: the EF store != new_ef")
+        gate(rel <= PLANES_REL_TOL, f"task {t + 1}: mean off by {rel}")
+        sub = fed.get_task(out["task"])
+        out["result_wire_bytes"] = [r.result_wire_bytes for r in sub.runs]
+    moved = sum(not torch.equal(dc._ef[f"{i}:update"],
+                                ef_before[1][f"{i}:update"])
+                for i in range(n_s))
+    gate(moved == n_s, f"the EF store advanced at {moved} of {n_s} stations")
+    raw = 4 * n_params * n_s
+    wire = sum(outs[-1]["frames"])
+    reduction = raw / wire
+    sec = outs[-1]["seconds"]
+    comp = 1e3 * np.asarray([s for o in outs for s in o["compress_s"]])
+    decomp = 1e3 * np.asarray([s for o in outs
+                               for s in o["seconds"]["decompress"]])
+    # medians: each task's first calls pay lazy library set-up
+    comp_ms, decomp_ms = float(np.median(comp)), float(np.median(decomp))
+    enc_ms, dec_ms = 1e3 * sum(sec["encode"]), 1e3 * sum(sec["decode"])
+    print(f"gate EF store advanced between the tasks at {moved} of {n_s} "
+          f"stations; wire reduction {reduction:.3f}x ({raw} raw f32 bytes "
+          f"/ {wire} v2 frame bytes for {n_s} stations; bar "
+          f"{MIN_WIRE_REDUCTION}x; run records' result_wire_bytes "
+          f"{min(outs[-1]['result_wire_bytes'])}-"
+          f"{max(outs[-1]['result_wire_bytes'])})")
+    gate(reduction >= MIN_WIRE_REDUCTION, f"reduction {reduction} < "
+         f"{MIN_WIRE_REDUCTION}")
+    print(f"compressed exchange: compress_update {comp_ms:.3f} ms per "
+          f"station, decompress_update {decomp_ms:.3f} ms per payload "
+          f"(medians over {pl['tasks']} x {n_s}; means {comp.mean():.3f} "
+          f"and {decomp.mean():.3f}, first calls {comp[0]:.3f} and "
+          f"{decomp[0]:.3f}); the last task's v2 encode {enc_ms:.3f} ms and "
+          f"decode {dec_ms:.3f} ms for the {n_s} payloads")
+    res["compressed_exchange"] = dict(
+        reduction=reduction, raw_bytes=raw, wire_bytes=wire,
+        result_wire_bytes=outs[-1]["result_wire_bytes"],
+        compress_update_ms=comp_ms, decompress_update_ms=decomp_ms,
+        compress_update_mean_ms=float(comp.mean()),
+        decompress_update_mean_ms=float(decomp.mean()),
+        compress_update_first_ms=float(comp[0]),
+        encode_ms=enc_ms, decode_ms=dec_ms)
+    del outs, hats, deltas, ef_before
+
+    # (b) the learning plane: central_learning with learning_stats on
+    k = pl["rounds"]
+
+    def central(n_rounds=k):
+        task = fed.create_task("planes", {
+            "method": "central_learning",
+            "kwargs": {"n_rounds": n_rounds}}, organizations=[0])
+        (out,) = fed.wait_for_results(task.id)
+        sync()
+        return task, out
+
+    central(1)  # warm-up
+    task, out = central()
+    hist = fed.learning_history(task.id)
+    gate(hist is not None and hist.rounds_total == k,
+         f"learning history holds {None if hist is None else hist.rounds_total}"
+         f" rounds, not {k}")
+    subs = sorted((t for t in fed.tasks.values() if t.parent_id == task.id),
+                  key=lambda t: t.id)
+    errs = [0.0, 0.0]
+    for rec, sub in zip(hist.rounds(), subs):
+        shape, norms, cos = _host_station_stats(
+            torch, sub.stacked_result,
+            sub.stacked_result["count"] * sub.participation)
+        for j, (got, want) in enumerate(((rec["station_norms"], norms),
+                                         (rec["station_cos"], cos))):
+            errs[j] = max(errs[j], float(
+                np.max(np.abs(np.asarray(got) - want))
+                / np.max(np.abs(want))))
+    print(f"gate learning plane: {hist.rounds_total} rounds recorded for "
+          f"central_learning's task {task.id} ({len(subs)} subtasks); station "
+          f"norms {errs[0]:.3e} and cosines {errs[1]:.3e} relative to a "
+          f"float64 numpy recompute over the pulled {list(shape)} stacked "
+          f"results ({n_params} delta params, the count and the loss; tol "
+          f"{LEARNING_REL_TOL:g})")
+    gate(max(errs) <= LEARNING_REL_TOL, f"learning stats off by {errs}")
+    gate(len(subs) == k, f"{len(subs)} subtasks, not {k}")
+
+    def turn(on):
+        fed.config.learning_stats = on
+        t0 = time.perf_counter()
+        central()
+        return 1e3 * (time.perf_counter() - t0) / k
+
+    runs = {True: [], False: []}
+    for on in (False, True, True, False) * (pl["timed_turns"] // 2):
+        runs[on].append(turn(on))
+    fed.config.learning_stats = True
+    on_ms, off_ms = float(np.mean(runs[True])), float(np.mean(runs[False]))
+    print(f"runtime round (central_learning, aggregate_stacked) with "
+          f"learning_stats on {on_ms:.3f} ms (runs "
+          f"{[round(x, 3) for x in runs[True]]}), off {off_ms:.3f} ms (runs "
+          f"{[round(x, 3) for x in runs[False]]}), in turns: the record "
+          f"costs {on_ms - off_ms:.3f} ms a round (its [{n_s}, "
+          f"{shape[1]}] pull is {4 * n_s * shape[1] / 1e6:.1f} MB)")
+
+    eng = W.make_engine(n_stations=n_s, device=dev,
+                        local_steps=cfg["local_steps"],
+                        batch_size=cfg["batch"], local_lr=cfg["lr"])
+    kf = pl["fused_rounds"]
+    ehist = eng.attach_history("planes.engine")
+    _, _, losses, stats = eng.run_rounds(params0, sx, sy, counts, seed, kf)
+    recs = ehist.rounds()
+    same = len(recs) == kf and all(
+        rec["update_norm"] == float(stats["update_norm"][r])
+        and rec["station_norms"] == stats["station_norm"][r].tolist()
+        and rec["station_cos"] == stats["station_cos"][r].tolist()
+        and rec["station_weights"] == stats["station_weight"][r].tolist()
+        and rec["loss"] == float(losses[r])
+        for r, rec in enumerate(recs))
+    print(f"gate attach_history: {len(recs)} rounds recorded from one "
+          f"run_rounds (K = {kf}), equal to the returned stats exactly: "
+          f"{same}")
+    gate(same, "the engine's history differs from its returned stats")
+
+    def fused(attached):
+        eng.attach_history(ehist if attached else None)
+        sync()
+        t0 = time.perf_counter()
+        eng.run_rounds(params0, sx, sy, counts, seed, kf)
+        sync()
+        return 1e3 * (time.perf_counter() - t0) / kf
+
+    fruns = {True: [], False: []}
+    for attached in (False, True, True, False):
+        fruns[attached].append(fused(attached))
+    eng.attach_history(None)
+    f_on, f_off = float(np.mean(fruns[True])), float(np.mean(fruns[False]))
+    print(f"fused round (run_rounds K = {kf}) with a history attached "
+          f"{f_on:.3f} ms (runs {[round(x, 3) for x in fruns[True]]}), "
+          f"without {f_off:.3f} ms (runs "
+          f"{[round(x, 3) for x in fruns[False]]}), in turns")
+    res["learning"] = dict(
+        rounds=hist.rounds_total, norm_rel_err=errs[0], cos_rel_err=errs[1],
+        runtime_on_ms=on_ms, runtime_off_ms=off_ms,
+        runtime_on_runs=runs[True], runtime_off_runs=runs[False],
+        fused_attached_ms=f_on, fused_detached_ms=f_off,
+        engine_history_equal=same)
+    del eng
+
+    # (c) the device observatory on a fresh engine's fused runs
+    oeng = W.make_engine(n_stations=n_s, device=dev,
+                         local_steps=cfg["local_steps"],
+                         batch_size=cfg["batch"], local_lr=cfg["lr"],
+                         learning_stats=False)
+    rows = sx.shape[1] // pl["rows_cut"]
+    cut = (sx[:, :rows].contiguous(), sy[:, :rows].contiguous(),
+           counts.clamp(max=rows))
+
+    def compiles(trace_id):
+        return [s for s in TRACER.drain(trace_id)
+                if s["name"] == "device.compile"]
+
+    obs = {}
+    for name, (x, y, c) in (("first", (sx, sy, counts)),
+                            ("same", (sx, sy, counts)),
+                            ("rows_cut", cut)):
+        d0 = oeng._run.stats()["dispatches"]
+        with TRACER.span("smoke.observatory", kind="smoke",
+                         attrs={"call": name}) as root:
+            oeng.run_rounds(params0, x, y, c, seed, kf)
+            sync()
+            trace_id = root.context.trace_id
+        obs[name] = dict(spans=[s["attrs"] for s in compiles(trace_id)],
+                         dispatched=oeng._run.stats()["dispatches"] - d0)
+    first, same_sig, cut_sig = obs["first"], obs["same"], obs["rows_cut"]
+    sp = first["spans"][0] if first["spans"] else {}
+    print(f"gate observatory: first run_rounds of its signature -> "
+          f"{len(first['spans'])} device.compile span (warm-up "
+          f"{sp.get('warmup_ms')} ms, capture {sp.get('capture_ms')} ms, "
+          f"{sp.get('capture_allocated_bytes')} bytes allocated, "
+          f"{sp.get('capture_reserved_bytes')} reserved); same signature "
+          f"-> {len(same_sig['spans'])} spans, {same_sig['dispatched']} "
+          f"dispatch counted")
+    gate(len(first["spans"]) == 1 and sp.get("capture_ms") is not None
+         and sp.get("capture_allocated_bytes") is not None,
+         f"the first call's compile spans: {first['spans']}")
+    gate(len(same_sig["spans"]) == 0 and same_sig["dispatched"] == 1,
+         f"the same signature compiled again or was not counted: {same_sig}")
+    cs = cut_sig["spans"][0] if cut_sig["spans"] else {}
+    changed = cs.get("changed", "")
+    print(f"gate retrace: {rows} rows per station instead of "
+          f"{sx.shape[1]} -> {len(cut_sig['spans'])} compile span, retrace "
+          f"{cs.get('retrace')}, changed {changed!r}; engine's "
+          f"fedavg.run_rounds: {oeng._run.stats()['retraces']} retrace, "
+          f"{oeng._run.stats()['compiles']} compiles")
+    gate(len(cut_sig["spans"]) == 1 and cs.get("retrace") is True
+         and oeng._run.stats()["retraces"] == 1
+         and changed.startswith("[0][1]: ")
+         and f"[{n_s},{sx.shape[1]}," in changed
+         and f"[{n_s},{rows}," in changed,
+         f"the rows cut is not one retrace naming the leaf: {cut_sig}")
+    prof_dir = os.path.join(HERE, "chiprun_out", "planes_profile")
+    window = P.profile_window(log_dir=prof_dir, run=lambda: oeng.run_rounds(
+        params0, sx, sy, counts, seed, 1))
+    kernels = P.trace_kernel_events(window["trace"])
+    noted = any(n.get("kind") == "profile_window"
+                and n.get("trace") == window["trace"]
+                for n in FLIGHT.recent_notes(limit=10_000))
+    print(f"gate profile_window around one fused round: "
+          f"{window['seconds'] * 1e3:.3f} ms, {kernels} CUDA kernel events "
+          f"in {os.path.relpath(window['trace'], HERE)}, noted in FLIGHT "
+          f"{noted}")
+    gate(kernels > 0 and noted, "the profile window holds no kernels or "
+         "was not noted")
+    res["observatory"] = dict(
+        warmup_ms=sp.get("warmup_ms"), capture_ms=sp.get("capture_ms"),
+        capture_allocated_bytes=sp.get("capture_allocated_bytes"),
+        capture_reserved_bytes=sp.get("capture_reserved_bytes"),
+        retrace_changed=changed, profile_kernel_events=kernels,
+        profile_ms=window["seconds"] * 1e3)
+    del oeng
+
+    # (d) the flight recorder
+    bundle = read_bundle(FLIGHT.dump(
+        os.path.join(HERE, "chiprun_out", "planes_flight.jsonl"),
+        reason="chip_smoke"))
+    learning = [r for r in bundle if r["type"] == "learning"
+                and r.get("task") == task.id]
+    retraces = [r for r in bundle if r["type"] == "note"
+                and r.get("kind") == "retrace"
+                and r.get("function") == "fedavg.run_rounds"]
+    print(f"gate flight dump: {len(bundle)} records, learning records of "
+          f"task {task.id}: {len(learning)}, retrace notes of "
+          f"fedavg.run_rounds: {len(retraces)}")
+    gate(learning and retraces, "the dump lacks the learning record or the "
+         "retrace note")
+    fed.close()
+    del fed
+
+    sync()
+    launches = dict(fa.flash_forward_cuda.variant_launches)
+    res["launches"] = launches
+    print(f"planes flash launches: {launches} (0 expected: the CNN, the "
+          f"compressor and the host planes)")
+    gate(sum(launches.values()) == 0,
+         f"the planes launched a flash kernel: {launches}")
+    check(not failed, "planes gates failed: " + "; ".join(failed))
+    return res
+
+
 def _numpy_irls(family, x, y, n_iter=50):
     """Pooled float64 IRLS in numpy, to convergence (the oracle)."""
     beta = np.zeros(x.shape[1])
@@ -2014,6 +2508,7 @@ def main(argv: list[str]) -> int:
     del wire_params
     task_plane = phase_task_plane(fa, torch, dev,
                                   profile="--profile" in argv)
+    planes = phase_planes(fa, torch, dev)
     print(f"fedavg-cnn: {fedavg['fused_ms_per_round']:.3f} ms/round fused "
           f"({fedavg['rounds_per_s']:.1f} rounds/s), "
           f"{fedavg['eager_ms_per_round']:.3f} ms/round eager, "
@@ -2054,6 +2549,18 @@ def main(argv: list[str]) -> int:
           f"{tp['host']['0']['ms']:.3f} ms sequential, "
           f"{tp['host'][str(TASK_PLANE['host_workers'])]['ms']:.3f} ms at "
           f"{TASK_PLANE['host_workers']} workers on {card}")
+    ce, ln, ob = (planes["compressed_exchange"], planes["learning"],
+                  planes["observatory"])
+    print(f"planes: compress_update {ce['compress_update_ms']:.3f} ms, "
+          f"decompress_update {ce['decompress_update_ms']:.3f} ms per "
+          f"station, v2 encode/decode {ce['encode_ms']:.3f}/"
+          f"{ce['decode_ms']:.3f} ms for 32 payloads, reduction "
+          f"{ce['reduction']:.3f}x; runtime round learning on/off "
+          f"{ln['runtime_on_ms']:.3f}/{ln['runtime_off_ms']:.3f} ms, fused "
+          f"with/without history {ln['fused_attached_ms']:.3f}/"
+          f"{ln['fused_detached_ms']:.3f} ms; capture {ob['capture_ms']} ms "
+          f"(warm-up {ob['warmup_ms']} ms), "
+          f"{ob['capture_allocated_bytes']} bytes on {card}")
 
     # each kernel at the shape and dtype it serves: the tensor-core kernels
     # at the main path's head dim 128, the CUDA-core one in bf16 at head
@@ -2074,6 +2581,7 @@ def main(argv: list[str]) -> int:
         launches_compression=compression["launches"][variant],
         launches_analysis=analysis["launches"][variant],
         launches_task_plane=task_plane["launches"][variant],
+        launches_planes=planes["launches"][variant],
         **{key: times[case][variant][key] for key in (
             "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
@@ -2083,7 +2591,8 @@ def main(argv: list[str]) -> int:
                   max_abs_err_cases=max_err_cases, slice=slice_res,
                   ring=ring, parallel_ops=parallel_ops, wire=wire,
                   fedavg=fedavg, compression=compression, analysis=analysis,
-                  task_plane=task_plane, kernels=kernels, times=times, profile=prof,
+                  task_plane=task_plane, planes=planes, kernels=kernels,
+                  times=times, profile=prof,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2093,7 +2602,7 @@ def main(argv: list[str]) -> int:
                       "parallel_ops": parallel_ops, "wire": wire,
                       "fedavg": fedavg,
                       "compression": compression, "analysis": analysis,
-                      "task_plane": task_plane}))
+                      "task_plane": task_plane, "planes": planes}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

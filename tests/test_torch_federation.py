@@ -187,8 +187,15 @@ def test_one_card_refuses_devices_per_station():
     ({"autopilot": {"enabled": True}}, r"9\.2 \(4\)"),
 ])
 def test_unported_planes_raise_rather_than_being_ignored(fed_raw, item):
+    """A plane the port lacks raises; compression (item 9.2 (1)) is
+    ported, so its config arms the federation's compressor instead."""
     raw = {"federation": fed_raw, "stations": [{"name": "a"}]}
     cfg = TORCH.config.FederationConfig.from_dict(raw)
+    if "compression" in fed_raw:
+        fed = TORCH.federation.Federation(cfg, device="cpu")
+        assert fed._delta_compressor.spec == cfg.compressor
+        fed.close()
+        return
     with pytest.raises(NotImplementedError, match=item):
         TORCH.federation.Federation(cfg, device="cpu")
 

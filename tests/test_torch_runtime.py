@@ -258,7 +258,7 @@ def test_checkpoint_round_trip_is_bit_identical(tmp_path):
         assert all(torch.equal(a[k], b[k]) for k in b)
     assert torch.equal(back.opt_state.count, state.count)
     expect = torch.rand(5, generator=gen)
-    assert torch.equal(torch.rand(5, generator=back.generator()), expect)
+    assert torch.equal(torch.rand(5, generator=back.generator("cpu")), expect)
     assert not (tmp_path / "ckpt" / "round_3.pt").exists()
     mgr.close()
 
@@ -295,7 +295,7 @@ def test_checkpoint_resume_continues_training(tmp_path):
     mgr.save(tckpt.TrainState(p, s, 2, gen))
     straight = rounds(p, s, gen, 2)[0]
     back = mgr.restore(device="cpu")
-    resumed = rounds(back.params, back.opt_state, back.generator(), 2)[0]
+    resumed = rounds(back.params, back.opt_state, back.generator("cpu"), 2)[0]
     assert all(torch.equal(resumed[k][n], straight[k][n])
                for k in straight for n in straight[k])
 

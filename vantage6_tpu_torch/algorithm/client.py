@@ -16,9 +16,7 @@ Surface kept reference-shaped::
     orgs = client.organization.list()
 
 The port's copy of ``vantage6_tpu/algorithm/client.py``, plus
-``device`` (the card the partials run on). ``compress_update`` and
-``decompress_update`` come with the port's host-plane compression
-(ROADMAP.md).
+``device`` (the card the partials run on).
 """
 from __future__ import annotations
 
@@ -110,6 +108,19 @@ class AlgorithmClient:
             task_id, weights=weights, agg_mode=agg_mode
         )
 
+    def compress_update(self, tree: Any, name: str = "update") -> Any:
+        """Compress a model-delta tree for the uplink under the
+        federation's configured compressor, with THIS station's
+        error-feedback accumulator. A partial returns the compressed
+        payload as its result; the central side folds it back with
+        ``decompress_update``. Pass-through when no compressor is
+        configured, so the call can stay in place unconditionally."""
+        return self._fed.compress_update(self._station, tree, name=name)
+
+    def decompress_update(self, payload: Any) -> Any:
+        """Materialize the dense update from a `compress_update` payload
+        (pass-through for uncompressed results)."""
+        return self._fed.decompress_update(payload)
 
 
 class _TaskSubClient:

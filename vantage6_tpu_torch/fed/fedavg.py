@@ -32,13 +32,22 @@ draws each round's indices and noise just before its replay, from the
 host, into the graph's buffers: one round's draws are held at a time, so
 its memory does not grow with K.
 
-Not ported yet: the host telemetry and history hooks (``_record_wire``,
-``_record_fused``, ``attach_history``; ROADMAP.md queue 1 item 9).
+The host hooks follow the JAX package: ``round``, ``run_rounds`` and
+``run_rounds_async`` dispatch through the device observatory
+(``runtime.profiling``; ``n_rounds`` is a swept static), each captured
+round is a ``device.compile`` event of the engine's ``CaptureCache``, the
+compressed uplink and the fused dispatches are counted in the
+``v6t_compress_*``/``v6t_fused_*`` series, and ``attach_history`` records
+every round's stats into a ``runtime.learning.RoundHistory``.
+Observability never fails a round: a recording error is logged at debug
+level; the stats' pull to the host is the round's own, so a device error
+there propagates.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
+import logging
 import time
 from typing import Any, Callable
 
@@ -46,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from vantage6_tpu_torch._tree import tree_leaves, tree_map
+from vantage6_tpu_torch.common.telemetry import REGISTRY
 from vantage6_tpu_torch.core.mesh import FederationMesh
 from vantage6_tpu_torch.fed.collectives import (
     all_gather_stations,
@@ -65,8 +75,10 @@ from vantage6_tpu_torch.fed.compression import (
     compress_stacked,
     draw_noise,
     noise_size,
+    record_round_telemetry,
 )
 from vantage6_tpu_torch.optim import apply_updates, sgd
+from vantage6_tpu_torch.runtime.profiling import CaptureCache, observed_jit
 
 Pytree = Any
 # loss_fn(params, batch_x, batch_y, example_weights) -> scalar mean loss
@@ -193,10 +205,24 @@ class FedAvg:
                              and not spec.compressor.identity)
         self.server_opt = spec.server_optimizer or sgd(1.0)
         # captured rounds, keyed on their inputs' structure, shapes, dtypes;
-        # at most FUSED_CACHE_SIZE, the oldest evicted first
-        self._fused: dict[str, _FusedRound] = {}
+        # at most FUSED_CACHE_SIZE, the oldest evicted first; each capture
+        # is a device.compile event
+        self._fused = CaptureCache(FUSED_CACHE_SIZE)
         # warm-up and capture seconds of the newest captured round
         self.last_capture: dict[str, float] | None = None
+        # optional learning-plane sink (attach_history)
+        self.history: Any = None
+        # the entry points under the device observatory: every call is a
+        # counted dispatch, a shape-wobbling caller a named retrace; the
+        # fused runs sweep n_rounds (not a retrace). Bound methods are held
+        # weakly, so the engine makes no reference cycle.
+        self._round = observed_jit("fedavg.round", self._round_call)
+        self._run = observed_jit(
+            "fedavg.run_rounds", self._run_rounds_call,
+            static_argnames=("n_rounds",), sweep_statics=("n_rounds",))
+        self._run_async = observed_jit(
+            "fedavg.run_rounds_async", self._run_rounds_async_call,
+            static_argnames=("n_rounds",), sweep_statics=("n_rounds",))
 
     @property
     def device(self) -> torch.device:
@@ -430,10 +456,18 @@ class FedAvg:
         ``batch_idx`` ([S, local_steps, batch]) and an int8 compressor's
         rounding noise from ``noise`` ([S, n_pad]), or each is drawn with
         ``key``. Every input is moved to the engine's device first."""
+        out = self._round(params, opt_state, stacked_x, stacked_y, counts,
+                          key, mask, batch_idx, noise)
+        self._record_history(out[2], out[3], rounds_per_dispatch=1)
+        return out
+
+    def _round_call(self, params, opt_state, stacked_x, stacked_y, counts,
+                    key, mask, batch_idx, noise):
         counts = self._place(counts, torch.float32)
         mask = (torch.ones_like(counts) if mask is None
                 else self._place(mask, torch.float32))
         params = self._device_params(params)
+        self._record_wire(params)
         idx, u = self._draws(counts, params, key, batch_idx, noise, 1)(0)
         with torch.no_grad():
             return self._round_impl(
@@ -470,6 +504,53 @@ class FedAvg:
                           key, mask=effective, batch_idx=batch_idx,
                           noise=noise)
 
+    def _record_wire(self, params: Pytree, n_rounds: int = 1) -> None:
+        """Host-side wire accounting of the compressed delta uplink
+        (``v6t_compress_*`` series); metadata only."""
+        if self._compressing:
+            record_round_telemetry(
+                self.spec.compressor, flat_size(params),
+                self.mesh.n_stations, rounds=n_rounds,
+            )
+
+    def _record_fused(self, n_rounds: int) -> None:
+        """Fused-run telemetry (host-side, metadata only): how many logical
+        rounds each dispatch amortizes."""
+        REGISTRY.counter("v6t_fused_dispatches_total").inc()
+        REGISTRY.counter("v6t_fused_rounds_total").inc(n_rounds)
+        REGISTRY.gauge("v6t_fused_rounds_per_dispatch").set(n_rounds)
+
+    # --------------------------------------------------------- learning plane
+    def attach_history(self, history: Any) -> Any:
+        """Attach a ``runtime.learning.RoundHistory`` (or a registry key,
+        resolved through the process ``LEARNING`` registry): every
+        round()/run_rounds() call then records its stats into it. Recording
+        pulls the stats to the host (one copy a dispatch), which waits for
+        the round. Returns the history; pass None to detach."""
+        if history is not None and not hasattr(history, "record_engine"):
+            from vantage6_tpu_torch.runtime.learning import LEARNING
+
+            history = LEARNING.history(history)
+        self.history = history
+        return history
+
+    def _record_history(self, losses: Any, stats: Any,
+                        rounds_per_dispatch: int = 1) -> None:
+        history = self.history
+        if history is None or not stats:
+            return
+        from vantage6_tpu_torch.runtime.learning import stats_to_host
+
+        # the pull is the round's own: a device error here propagates;
+        # record_engine takes the pulled arrays as they are
+        host = stats_to_host({"losses": losses, **stats})
+        try:
+            history.record_engine(host.pop("losses", None), host,
+                                  rounds_per_dispatch=rounds_per_dispatch)
+        except Exception:  # observability must never fail the round
+            logging.getLogger("vantage6_tpu_torch/fedavg").debug(
+                "round-history recording failed", exc_info=True)
+
     def compression_stats(self, params: Pytree) -> dict[str, Any] | None:
         """Per-round wire accounting of the delta uplink: raw and
         compressed bytes across all stations and the reduction ratio. None
@@ -496,6 +577,7 @@ class FedAvg:
         if n_rounds < 1:
             raise ValueError(f"n_rounds must be >= 1, got {n_rounds}")
         params = self._device_params(params)
+        self._record_wire(params, n_rounds=n_rounds)
         if opt_state is None:
             opt_state = self.init(params)
         draw = self._draws(counts, params, key, batch_idx, noise, n_rounds)
@@ -542,6 +624,14 @@ class FedAvg:
         no effect: the inputs are copied into the graph's own buffers and
         never consumed, and the round is replayed, not unrolled."""
         del donate, unroll
+        self._record_fused(n_rounds)
+        out = self._run(params, stacked_x, stacked_y, counts, key, mask,
+                        opt_state, batch_idx, noise, n_rounds=n_rounds)
+        self._record_history(out[2], out[3], rounds_per_dispatch=n_rounds)
+        return out
+
+    def _run_rounds_call(self, params, stacked_x, stacked_y, counts, key,
+                         mask, opt_state, batch_idx, noise, *, n_rounds):
         counts = self._place(counts, torch.float32)
         carry, row = self._fused_inputs(
             params, opt_state, counts, key, batch_idx, noise, n_rounds,
@@ -576,6 +666,18 @@ class FedAvg:
         opt_state, staleness[S], losses[n], stats)."""
         del donate
         spec.validate()
+        self._record_fused(n_rounds)
+        out = self._run_async(params, stacked_x, stacked_y, counts, key,
+                              accept_masks, spec.staleness_discount,
+                              staleness, mask, opt_state, batch_idx, noise,
+                              n_rounds=n_rounds)
+        self._record_history(out[3], out[4], rounds_per_dispatch=n_rounds)
+        return out
+
+    def _run_rounds_async_call(self, params, stacked_x, stacked_y, counts,
+                               key, accept_masks, staleness_discount,
+                               staleness, mask, opt_state, batch_idx, noise,
+                               *, n_rounds):
         counts = self._place(counts, torch.float32)
         carry, row = self._fused_inputs(
             params, opt_state, counts, key, batch_idx, noise, n_rounds,
@@ -583,7 +685,7 @@ class FedAvg:
             accept=accept_masks)
         carry["staleness"] = (torch.zeros_like(counts) if staleness is None
                               else self._place(staleness, torch.float32))
-        discount = torch.tensor(spec.staleness_discount, dtype=torch.float32,
+        discount = torch.tensor(staleness_discount, dtype=torch.float32,
                                 device=self.device)
         carry, losses, stats = self._run_fused(
             carry, dict(x=stacked_x, y=stacked_y, counts=counts,
@@ -624,11 +726,10 @@ class FedAvg:
         key = repr(tree_map(lambda t: (tuple(t.shape), str(t.dtype)), inputs))
         fused = self._fused.get(key)
         if fused is None:
-            if len(self._fused) >= FUSED_CACHE_SIZE:
-                self._fused.pop(next(iter(self._fused))).close()
-            fused = _FusedRound(self._round_step, inputs,
-                                capture=self.device.type == "cuda")
-            self._fused[key] = fused
+            fused = self._fused.build(
+                key, lambda: _FusedRound(self._round_step, inputs,
+                                         capture=self.device.type == "cuda"),
+                device=self.device)
             if fused.seconds is not None:
                 self.last_capture = fused.seconds
         return fused.run(self._round_step, inputs, row, list(carry),

@@ -12,7 +12,11 @@ Counterpart of ``vantage6_tpu/runtime/checkpoint.py``: orbax becomes
 (written to a temporary name and renamed, so a crash mid-write never
 leaves a torn checkpoint), and JAX's ``rng_key`` becomes the state of an
 explicit ``torch.Generator`` (``get_state()``, a uint8 tensor; restore it
-with ``set_state``). A restore places every tensor on the device named.
+with ``set_state``). A restore places the params and the optimizer state
+on the device named; the learning-plane history
+(``RoundHistory.state_arrays()``, numpy arrays, saved as CPU tensors)
+stays on the host, where ``RoundHistory.load_state`` reads it, so a
+resumed run's norm-decay trajectory continues.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import re
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 
 from vantage6_tpu_torch._tree import tree_map
@@ -40,8 +45,9 @@ class TrainState:
     # torch.Generator.get_state() of the run's batch-index generator; a
     # generator itself is accepted and saved as its state
     rng_state: Any
-    # learning-plane round history (the JAX package's RoundHistory
-    # .state_arrays()), optional both ways: None writes no entry
+    # learning-plane round history (runtime.learning.RoundHistory
+    # .state_arrays()), optional both ways: None writes no entry; restore
+    # it with RoundHistory.load_state
     history: Any = None
 
     def as_tree(self) -> dict[str, Any]:
@@ -55,7 +61,10 @@ class TrainState:
             "rng_state": rng,
         }
         if self.history is not None:
-            tree["history"] = self.history
+            tree["history"] = tree_map(
+                lambda x: torch.as_tensor(x)
+                if isinstance(x, (np.ndarray, np.generic)) else x,
+                self.history)
         return tree
 
     @classmethod
@@ -68,9 +77,11 @@ class TrainState:
             history=tree.get("history"),
         )
 
-    def generator(self, device: str | torch.device = "cpu") -> torch.Generator:
-        """A fresh generator on ``device`` holding the saved state."""
-        gen = torch.Generator(device=device)
+    def generator(self, device: str | torch.device | None = None
+                  ) -> torch.Generator:
+        """A fresh generator on ``device`` (CUDA unless ``"cpu"`` is asked
+        for) holding the saved state."""
+        gen = torch.Generator(device=resolve_device(device))
         gen.set_state(self.rng_state)
         return gen
 
@@ -121,7 +132,8 @@ class CheckpointManager:
         """The checkpoint of ``round_index`` (default: the newest), its
         params and optimizer state on ``device`` (CUDA unless ``"cpu"`` is
         asked for); None when there is none. The generator state stays a
-        CPU byte tensor, as ``set_state`` takes it."""
+        CPU byte tensor, as ``set_state`` takes it, and the history CPU
+        tensors."""
         device = resolve_device(device)
         step = round_index if round_index is not None else self.latest_round()
         if step is None:
@@ -129,7 +141,7 @@ class CheckpointManager:
         with torch.serialization.safe_globals(_SAFE_GLOBALS):
             tree = torch.load(self._path(step), map_location="cpu",
                               weights_only=True)
-        for name in ("params", "opt_state", "history"):
+        for name in ("params", "opt_state"):
             if name in tree:
                 tree[name] = tree_map(
                     lambda x: x.to(device) if isinstance(x, torch.Tensor)

@@ -23,13 +23,14 @@ Two execution modes per partial function:
   HTTPS polling. A partial that cannot run under vmap crashes its runs
   with the traceback; there is no per-station loop to fall back to.
 
-Counterpart of ``vantage6_tpu/runtime/federation.py``, on one card.
-Not ported yet, each in ROADMAP.md: the watchdog feed, the autopilot, the
-fleet push, fault injection and the flight recorder's notes; RSA org
+Counterpart of ``vantage6_tpu/runtime/federation.py``, on one card, with
+the learning-plane record of device aggregations (``learning_history``)
+and the host-plane delta compression (``compress_update``/
+``decompress_update``, error feedback kept per station). Not ported yet,
+each in ROADMAP.md: the watchdog feed, the autopilot, the fleet push,
+fault injection and the federation's own flight-recorder notes; RSA org
 identities (``identity``/``org_identities`` are None in a run's
-environment); the learning-plane record of device aggregations; and the
-host-plane delta compression (``compress_update``/``decompress_update``).
-A config that asks for a compressor or an autopilot raises
+environment). A config that asks for the autopilot raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -66,8 +67,9 @@ class Federation:
     ``algorithms`` maps an image name (the reference's Docker-image role) to a
     module or ``{name: fn}`` dict of algorithm functions. ``device`` is the
     card the stations' device-mode partials run on (CUDA unless ``"cpu"``
-    is asked for). ``config.learning_stats`` is accepted; nothing is
-    recorded yet (the learning plane is not ported).
+    is asked for). ``config.compressor`` arms ``compress_update``;
+    ``config.learning_stats`` records every device-mode aggregation into
+    the learning plane.
     """
 
     def __init__(
@@ -78,11 +80,6 @@ class Federation:
         metrics: Any = None,
     ):
         config.validate()
-        if config.compressor is not None:
-            raise NotImplementedError(
-                "host-plane delta compression (Federation.compress_update) "
-                "is not ported yet: ROADMAP.md queue 1, item 9.2 (1)"
-            )
         if (config.autopilot or {}).get("enabled"):
             raise NotImplementedError(
                 "the autopilot is not ported yet: ROADMAP.md queue 1, "
@@ -162,6 +159,22 @@ class Federation:
         # run ids queued/executing on the pool (NOT the same as PENDING:
         # a PENDING run on an offline station is owed, not in flight)
         self._inflight_runs: set[int] = set()  # guarded-by: _inflight_lock
+        # --------------------------------------------- gradient compression
+        # Host-plane delta compression: ONE DeltaCompressor holds every
+        # station's error-feedback accumulator (keyed "station:name", each
+        # station's compression error re-injected into ITS next update).
+        # Its internal lock guards the bookkeeping; pool workers for
+        # different stations compress concurrently, and the per-station
+        # FIFO guarantees one station never races itself.
+        self.compressor = config.compressor
+        self._delta_compressor = None
+        if self.compressor is not None and not getattr(
+            self.compressor, "identity", False
+        ):
+            from vantage6_tpu_torch.fed.compression import DeltaCompressor
+
+            self._delta_compressor = DeltaCompressor(
+                self.compressor, device=self.mesh.device)
         self._inflight_lock = threading.Lock()
         self._stacked_lock = threading.Lock()   # _stacked_cache builds
         self._session_lock = threading.Lock()   # session bookkeeping
@@ -1121,7 +1134,83 @@ class Federation:
                         else None
                     ),
                 )
+        # OUTSIDE the aggregate span: the stats pass waits on a
+        # device->host pull of the stacked result, which must not inflate
+        # the aggregation-latency telemetry it sits next to
+        self._record_learning(task, weights)
         return out
+
+    def _record_learning(self, task: Task, weights: Any) -> None:
+        """Learning-plane record of one device-mode aggregation: the
+        per-station update stats of the stacked result (every leaf,
+        flat-packed in ``_tree`` order, as the JAX package packs it), keyed
+        by the PARENT task when there is one, so a central loop's per-round
+        subtasks accumulate into one trajectory. Gated by
+        ``FederationConfig.learning_stats`` (the ``[S, N]`` pull to the
+        host is the cost). The pull is the aggregation's own (a device
+        error propagates); a recording error is logged at debug level and
+        never fails the aggregation."""
+        if not getattr(self.config, "learning_stats", True):
+            return
+        from vantage6_tpu_torch.fed.collectives import flatten_stacked
+        from vantage6_tpu_torch.runtime.learning import (
+            LEARNING,
+            update_stats_host,
+        )
+
+        def host(x: Any) -> Any:
+            if isinstance(x, torch.Tensor):
+                return x.detach().cpu().numpy()
+            return None if x is None else np.asarray(x)
+
+        key = task.parent_id if task.parent_id is not None else task.id
+        flat = flatten_stacked(task.stacked_result).detach().float().cpu()
+        w, m = host(weights), host(task.participation)
+        try:
+            stats = update_stats_host(flat.numpy(), weights=w, mask=m)
+            LEARNING.history(key).record_stats(stats)
+        except Exception:
+            import logging
+
+            logging.getLogger("vantage6_tpu_torch/federation").debug(
+                "learning-plane recording failed for task %s", task.id,
+                exc_info=True,
+            )
+
+    def learning_history(self, task_id: int):
+        """The learning-plane RoundHistory recorded for ``task_id`` (its
+        own id or, for per-round subtasks, the parent's), or None."""
+        from vantage6_tpu_torch.runtime.learning import LEARNING
+
+        return LEARNING.get(task_id)
+
+    # ------------------------------------------------- gradient compression
+    def compress_update(
+        self, station: int, tree: Any, name: str = "update"
+    ) -> Any:
+        """Station-side half of the host-plane delta exchange: compress
+        ``tree`` (a model delta; tensors stay on their device) under the
+        federation's compressor, with THIS station's error-feedback
+        accumulator re-injected first and updated after (keyed ``(station,
+        name)``). Returns a wire-serializable payload whose sparse half is
+        a v2 ``SparseVector``; recorded as a ``device.compress`` span and
+        counted in the ``v6t_compress_*`` series. A pass-through without
+        an (effective) compressor, so algorithm code can leave the call in
+        place unconditionally."""
+        dc = self._delta_compressor
+        if dc is None:
+            return tree
+        return dc.compress(tree, name=f"{station}:{name}", station=station)
+
+    def decompress_update(self, payload: Any) -> Any:
+        """Server-side half: the dense update tree, on the federation's
+        device, from a ``compress_update`` wire payload
+        (``device.decompress`` span). A pass-through for anything that is
+        not a compressed payload, so mixed result lists fold uniformly.
+        The spec rides the wire: no config needed here."""
+        from vantage6_tpu_torch.fed.compression import decompress_wire_tree
+
+        return decompress_wire_tree(payload, device=self.mesh.device)
 
     # ------------------------------------------------------ elastic recovery
     def _drain_pending(self, station: int, wait: bool = True) -> None:

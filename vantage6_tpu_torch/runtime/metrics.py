@@ -6,9 +6,8 @@ structured layer the BASELINE methodology needs: JSONL round metrics
 traces (Chrome trace JSON, viewable in Perfetto) around chosen rounds.
 
 Counterpart of ``vantage6_tpu/runtime/metrics.py``: device memory comes
-from ``torch.cuda`` per visible card. The learning-plane and REST
-snapshots wait for the port's ``runtime/learning.py`` and
-``common/rest.py``.
+from ``torch.cuda`` per visible card. The REST snapshot waits for the
+port's ``common/rest.py``.
 """
 from __future__ import annotations
 
@@ -210,6 +209,16 @@ def wire_stats_snapshot() -> dict[str, Any]:
     from vantage6_tpu_torch.common.serialization import WIRE_STATS
 
     return WIRE_STATS.snapshot()
+
+
+def learning_snapshot() -> list[dict[str, Any]]:
+    """Process-wide learning-plane summaries (`runtime.learning.LEARNING`):
+    one convergence view per tracked task — rounds, first/last/peak pooled
+    update norm, decay, per-station contribution table. The one import
+    point for observability consumers, like `wire_stats_snapshot`."""
+    from vantage6_tpu_torch.runtime.learning import LEARNING
+
+    return LEARNING.summaries()
 
 
 def device_memory_all() -> list[dict[str, Any]]:
