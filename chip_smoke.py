@@ -139,13 +139,38 @@ Phases, each of which raises (exit code 1) on failure:
    flight recorder. (d) ``FLIGHT.dump`` holds the task's ``learning``
    record and the ``retrace`` note. No flash kernel may launch.
 
+12. the parity ladder's tasks through ``Federation.create_task`` at a
+   registry's size: 32 stations of up to 65,536 patients (ragged, as
+   phase 8's) with 16 N(0, 1) covariates, event times in integer weeks
+   over 10 years (T ~ Exponential(exp(x.beta*)/200), censoring
+   Uniform(0, 520)), logistic labels; each station's device data a dict
+   of padded tensors and ``count``, its host data a dict of columns.
+   ``fit_device`` (100 iterations) against float64 numpy GD and
+   ``central_logistic`` (host, 10) against ``fit_device`` at 10;
+   ``kaplan_meier_device`` plain and ``secure=True`` (counts equal to
+   numpy's exactly, survival within 3 x K x 2^-24 of a float64
+   ``cumprod``) and ``central_kaplan_meier`` (exact); ``fit_cox_device``
+   (10 Newton steps) against a float64 pooled Breslow Newton, its peak
+   memory under 40 GB, and ``central_cox`` (host, 3) against
+   ``fit_cox_device`` at 3; ``summary_device`` and ``central_summary``
+   against numpy float64; the host centrals of phase 8's programs at its
+   sizes (``central_glm`` for each family against numpy IRLS,
+   ``central_quantile`` 0.5 and 0.95 equal to the rank value,
+   ``central_crosstab`` exact, ``central_correlation``, and
+   ``central_vertical_logistic`` over 4 x 262,144 for 3 iterations, its
+   per-sample lists sized for the wire at every exchange); ms per call
+   (median of 3, synchronised) and peak memory of each. No flash kernel
+   may launch.
+
 ``--profile`` traces one more round of each run of phases 4 and 9
 (torch.profiler) and reports device time by kernel group and under the
 ``attention_fwd``/``attention_bwd`` profiler ranges, one fused round of
 phases 6 and 7 (dense and compressed) with the device's busy share, and
 one call of each analysis program of phase 8 (kernel time, launches),
-and one runtime round and one eager round of phase 10 (device busy share,
-launches, the host's costliest functions).
+one runtime round and one eager round of phase 10 (device busy share,
+launches, the host's costliest functions), and one call of
+``fit_cox_device`` and ``fit_device`` of phase 12 (busy share, launches,
+the costliest kernels).
 
 Prints the card's name and power limit first, a ``{"kernels": [...]}`` line
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -2433,6 +2458,492 @@ def _numpy_irls(family, x, y, n_iter=50):
     return beta
 
 
+# --------------------------- phase 12: the parity ladder's tasks on the card
+# rungs 2, 4 and 5 of BASELINE.md's parity ladder (federated logistic
+# regression, Cox, Kaplan-Meier with a secure sum) and the summary, at a
+# registry's size: phase 8's 32 stations of up to 65,536 patients (ragged)
+# and 16 covariates, ten years of follow-up in integer weeks; then the host
+# centrals of phase 8's programs at phase 8's sizes
+WORKLOADS = dict(stations=ANALYSIS["stations"], rows=ANALYSIS["rows"],
+                 features=ANALYSIS["features"], weeks=520, hazard_scale=200.0,
+                 logit_bias=0.2, logreg_iter=100, logreg_lr=1.0,
+                 logreg_host_iter=10, cox_iter=10, cox_host_iter=3,
+                 secure_key=0x5EC0_00D5_1A7E_0001, workers=8,
+                 row_cats=ANALYSIS["row_cats"], col_cats=ANALYSIS["col_cats"],
+                 min_cell_count=ANALYSIS["min_cell_count"],
+                 quantiles=ANALYSIS["quantiles"],
+                 vertical_stations=ANALYSIS["vertical_stations"],
+                 vertical_rows=ANALYSIS["vertical_rows"],
+                 vertical_host_iter=3, vertical_lr=1.0, seed=12)
+# 100 f32 GD steps against float64 GD; each gradient an f32 sum over ~2.1M
+# rows (as VERTICAL_ATOL's over 262,144)
+LOGREG_ATOL = 2e-4
+# the host central's 10 f32 steps against fit_device's 10: the same
+# per-station gradients summed in another order (numpy f32 across
+# stations), ~1e-6 a step
+LOGREG_HOST_ATOL = 2e-5
+# f32 Newton on sums over ~2.1M rows against float64 Newton: a relative
+# sqrt(N) x 2^-24 ~ 1e-4 of the gradient's terms, over a Hessian of the
+# same scale, moves beta by ~1e-5
+COX_BETA_ATOL = 1e-4
+# f32 column sums over 65,536-row stations: sqrt(65,536) x 2^-24 of E|x|
+# (~0.8) for the mean, doubled; the std's ss / n - mean^2 the same
+SUMMARY_ATOL = 2e-5
+# float64 sums of ~2.1M values in another order: 2.1M x 2^-53 < 2.4e-10
+SUMMARY_HOST_ATOL = 1e-9
+COX_MAX_PEAK_GB = 40.0  # well under the [S, K, n, d] einsum's 69.8 GB
+
+
+def _numpy_logreg(x, y, n_iter, lr):
+    """Pooled full-batch GD on the logistic NLL in float64 (the oracle)."""
+    w, b = np.zeros(x.shape[1]), 0.0
+    for _ in range(n_iter):
+        r = 1 / (1 + np.exp(-(x @ w + b))) - y
+        w = w - lr * (x.T @ r) / len(y)
+        b = b - lr * np.sum(r) / len(y)
+    return w, b
+
+
+def _numpy_cox(x, t, e, grid, n_iter, ridge=1e-6):
+    """Pooled Breslow Newton in float64 (the oracle), with the port's
+    ridge: rows grouped by time, each risk-set sum a reverse cumulative
+    sum over the groups (no [K, n] matrix). Returns (beta, the last
+    gradient, the per-component budget of its f32 terms)."""
+    order = np.argsort(t, kind="stable")
+    xs, ts, es = x[order], t[order], e[order]
+    times, starts = np.unique(ts, return_index=True)
+    ends = np.append(starts[1:], len(ts))
+    pos = np.searchsorted(times, grid)
+    d = np.add.reduceat(es, starts)[pos]
+    s = np.add.reduceat(xs * es[:, None], starts)[pos]
+    beta = np.zeros(x.shape[1])
+    for _ in range(n_iter):
+        w = np.exp(xs @ beta)
+        xw = xs * w[:, None]
+        g0 = np.add.reduceat(w, starts)
+        g1 = np.add.reduceat(xw, starts)
+        g2 = np.stack([xw[a:b].T @ xs[a:b] for a, b in zip(starts, ends)])
+        # at risk at g_k: every row whose time is >= g_k
+        s0, s1, s2 = (np.cumsum(g[::-1], axis=0)[::-1][pos]
+                      for g in (g0, g1, g2))
+        mean = s1 / s0[:, None]
+        grad = np.sum(s - d[:, None] * mean, axis=0)
+        cov = s2 / s0[:, None, None] - mean[:, :, None] * mean[:, None, :]
+        hess = -np.sum(d[:, None, None] * cov, axis=0) - ridge * np.eye(
+            len(beta))
+        terms = np.sum(np.abs(s) + d[:, None] * np.abs(mean), axis=0)
+        beta = beta - np.linalg.solve(hess, grad)
+    return beta, grad, terms
+
+
+def _profile_call(torch, fn, label, ms):
+    """One traced call of ``fn``: the device's busy share over the untraced
+    call's ``ms``, launches, and the costliest kernels."""
+    wall_ms, rows = trace_device(torch, fn)
+    check(bool(rows), f"the profiler recorded no device time for {label}")
+    busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+
+    def kind(name):
+        if "gemm" in name or "gemv" in name:
+            return "GEMMs and GEMVs (f32, CUDA cores)"
+        if "reduce_kernel" in name:
+            return "reductions"
+        return "elementwise and copies"
+
+    groups: dict[str, float] = {}
+    for k_ms, _, name in rows:
+        groups[kind(name)] = groups.get(kind(name), 0.0) + k_ms
+    print(f"profiled {label}: wall {wall_ms:.3f} ms traced, device busy "
+          f"{busy:.3f} ms in {launches} launches ({100 * busy / ms:.1f}% of "
+          f"the untraced {ms:.3f} ms)")
+    for name, g_ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {g_ms:9.3f} ms {100 * g_ms / busy:5.1f}%  {name}")
+    for k_ms, n, name in rows[:8]:
+        print(f"  {k_ms:9.3f} ms {n:6d}x {name[:90]}")
+    return dict(traced_wall_ms=wall_ms, device_busy_ms=busy,
+                launches=launches, busy_share_untraced=busy / ms,
+                groups=groups,
+                top=[dict(ms=m, count=n, name=k) for m, n, k in rows[:12]])
+
+
+def phase_workloads(fa, torch, dev, profile=False):
+    """Phase 12: the parity ladder's tasks through ``Federation.create_task``
+    at a registry's size, each held to a float64 numpy oracle (or to its
+    device twin), with ms per call (median of 3, synchronised) and peak
+    memory: ``fit_device`` and ``central_logistic``; ``kaplan_meier_device``
+    plain and secure, ``central_kaplan_meier``; ``fit_cox_device`` and
+    ``central_cox``; ``summary_device`` and ``central_summary``; the host
+    centrals of phase 8's programs. No flash kernel may launch. With
+    ``profile``, one traced call of ``fit_cox_device`` and ``fit_device``."""
+    from vantage6_tpu_torch.runtime.federation import federation_from_datasets
+    from vantage6_tpu_torch.workloads import glm, quantiles, stats, vertical
+    from vantage6_tpu_torch.workloads import logistic_regression as LR
+    from vantage6_tpu_torch.workloads import summary as SM
+    from vantage6_tpu_torch.workloads import survival as SV
+
+    cfg = WORKLOADS
+    rng = np.random.default_rng(cfg["seed"])
+    n_s, n, p = cfg["stations"], cfg["rows"], cfg["features"]
+    res, failed = {}, []
+    features = [f"f{j}" for j in range(p)]
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    def timed(name, fn, warmup=1):
+        torch.cuda.reset_peak_memory_stats()
+        ms, runs, result = median_ms(torch, fn, warmup=warmup)
+        res[name] = dict(ms=ms, runs_ms=runs,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return result
+
+    # the main path's counts start here
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+
+    # ------------------------------------------------------------- the data
+    counts, mask_np, _ = _ragged(rng, cfg, torch, dev)
+    keep = mask_np.astype(bool)
+    x = rng.standard_normal((n_s, n, p)).astype(np.float32)
+    x[~keep] = 0.0
+    beta_star = np.linspace(-0.5, 0.5, p)
+    rate = np.exp(x.astype(np.float64) @ beta_star) / cfg["hazard_scale"]
+    t_event = rng.exponential(1.0 / rate)
+    t_cens = rng.uniform(0.0, cfg["weeks"], size=(n_s, n))
+    time_ = np.ceil(np.minimum(np.minimum(t_event, t_cens),
+                               cfg["weeks"])).astype(np.float32)
+    event = (t_event <= t_cens).astype(np.float32)
+    w_star = rng.normal(size=p) * 0.3
+    prob = 1 / (1 + np.exp(-(x.astype(np.float64) @ w_star
+                             + cfg["logit_bias"])))
+    label = (rng.uniform(size=(n_s, n)) < prob).astype(np.float32)
+    for a in (time_, event, label):
+        a[~keep] = 0.0
+    del rate, t_event, t_cens, prob
+    tx, tt, te, ty = (torch.from_numpy(a).to(dev)
+                      for a in (x, time_, event, label))
+    tc = torch.from_numpy(counts.astype(np.float32)).to(dev)
+    device_data = [{"x": tx[i], "y": ty[i], "time": tt[i], "event": te[i],
+                    "count": tc[i]} for i in range(n_s)]
+    host_data = []
+    for i in range(n_s):
+        c = int(counts[i])
+        cols = {f: x[i, :c, j].astype(np.float64)
+                for j, f in enumerate(features)}
+        cols.update(time=time_[i, :c].astype(np.float64),
+                    event=event[i, :c].astype(np.float64),
+                    y=label[i, :c].astype(np.float64))
+        host_data.append(cols)
+    px, pt, pe, py = (a[keep].astype(np.float64)
+                      for a in (x, time_, event, label))
+    big_n = len(py)
+    grid = np.unique(pt[pe > 0])
+    print(f"workloads: {n_s} stations, {big_n} patients (ragged up to {n}),"
+          f" {p} covariates, {int(pe.sum())} events on a grid of "
+          f"{len(grid)} weeks")
+    images = {"logreg": LR, "survival": SV, "summary": SM}
+    dfed = federation_from_datasets(device_data, images, device=dev,
+                                    executor_workers=0)
+    hfed = federation_from_datasets(
+        host_data, dict(images, glm=glm, quantiles=quantiles, stats=stats),
+        device=dev, executor_workers=cfg["workers"])
+
+    def central(image, method, **kwargs):
+        task = hfed.create_task(image, {"method": method, "kwargs": kwargs},
+                                organizations=[0])
+        (out,) = hfed.wait_for_results(task.id)
+        return out
+
+    # ------------------------------------- rung 2: logistic regression
+    out = timed("fit_device", lambda: LR.fit_device(
+        dfed, p, n_iter=cfg["logreg_iter"], lr=cfg["logreg_lr"]))
+    w_ref, b_ref = _numpy_logreg(px, py, cfg["logreg_iter"],
+                                 cfg["logreg_lr"])
+    err = max(float(np.abs(out["w"][:, 0].cpu().numpy() - w_ref).max()),
+              abs(float(out["b"][0]) - b_ref))
+    res["fit_device"].update(max_abs_err=err, tol=LOGREG_ATOL,
+                             iterations=cfg["logreg_iter"])
+    print(f"gate fit_device ({cfg['logreg_iter']} iterations) vs float64 "
+          f"numpy GD: max_abs_err {err:.3e} (tol {LOGREG_ATOL})")
+    gate(err <= LOGREG_ATOL, f"fit_device off float64 GD by {err}")
+    k = cfg["logreg_host_iter"]
+    host = timed("central_logistic", lambda: central(
+        "logreg", "central_logistic", feature_cols=features, label_col="y",
+        n_iter=k, lr=cfg["logreg_lr"]), warmup=0)
+    dev_k = LR.fit_device(dfed, p, n_iter=k, lr=cfg["logreg_lr"])
+    err = max(float(np.abs(host["w"] - dev_k["w"].cpu().numpy()).max()),
+              float(np.abs(host["b"] - dev_k["b"].cpu().numpy()).max()))
+    res["central_logistic"].update(max_abs_err=err, tol=LOGREG_HOST_ATOL,
+                                   iterations=k, n=host["n_samples"])
+    print(f"gate central_logistic ({k} iterations, host) vs fit_device at "
+          f"{k}: max_abs_err {err:.3e} (tol {LOGREG_HOST_ATOL})")
+    gate(err <= LOGREG_HOST_ATOL and host["n_samples"] == big_n,
+         f"central_logistic off fit_device by {err}")
+
+    # ------------------------------------ rungs 4-5: Kaplan-Meier
+    events_ref = np.asarray([np.sum(pe[pt == g]) for g in grid])
+    sorted_t = np.sort(pt)
+    at_risk_ref = (big_n - np.searchsorted(sorted_t, grid, side="left")
+                   ).astype(np.float64)
+    surv_ref = np.cumprod(1.0 - events_ref / at_risk_ref)
+    km_tol = 3 * len(grid) * 2.0**-24
+    plain = timed("kaplan_meier_device", lambda: SV.kaplan_meier_device(
+        dfed, grid))
+    secure = timed("kaplan_meier_device_secure",
+                   lambda: SV.kaplan_meier_device(
+                       dfed, grid, secure=True, key=cfg["secure_key"]))
+    for name, r in (("kaplan_meier_device", plain),
+                    ("kaplan_meier_device_secure", secure)):
+        exact = (np.array_equal(r["events"], events_ref)
+                 and np.array_equal(r["at_risk"], at_risk_ref))
+        err = float(np.abs(r["survival"] - surv_ref).max())
+        res[name].update(counts_exact=exact, survival_max_abs_err=err,
+                         survival_tol=km_tol, grid=len(grid))
+        print(f"gate {name}: counts == numpy integer counts {exact}; "
+              f"survival vs float64 cumprod max_abs_err {err:.3e} (tol "
+              f"{km_tol:.3e} = 3 x {len(grid)} x 2^-24)")
+        gate(exact, f"{name} counts differ from numpy's")
+        gate(err <= km_tol, f"{name} survival off by {err}")
+    gate(np.array_equal(secure["survival"], plain["survival"]),
+         "secure KM differs from plain KM")
+    host = timed("central_kaplan_meier", lambda: central(
+        "survival", "central_kaplan_meier", time_col="time",
+        event_col="event"), warmup=0)
+    exact = (host["time"] == grid.tolist()
+             and host["events"] == events_ref.tolist()
+             and host["at_risk"] == at_risk_ref.tolist()
+             and host["survival"] == surv_ref.tolist())
+    res["central_kaplan_meier"].update(exact=exact)
+    print(f"gate central_kaplan_meier (host): grid, counts and survival == "
+          f"numpy float64 {exact} (exact)")
+    gate(exact, "central_kaplan_meier differs from numpy")
+
+    # ---------------------------------------------------------- rung 4: Cox
+    out = timed("fit_cox_device", lambda: SV.fit_cox_device(
+        dfed, p, grid, n_iter=cfg["cox_iter"]))
+    beta_ref, grad_ref, terms = _numpy_cox(px, pt, pe, grid,
+                                           cfg["cox_iter"])
+    err = float(np.abs(out["beta"] - beta_ref).max())
+    gn_ref = float(np.linalg.norm(grad_ref))
+    # f32 sums over N rows: sqrt(N) roundings of 2^-24 of the gradient's
+    # terms
+    gn_tol = float(np.linalg.norm(terms) * np.sqrt(big_n) * 2.0**-24)
+    peak = res["fit_cox_device"]["peak_mem_gb"]
+    res["fit_cox_device"].update(
+        max_abs_err=err, tol=COX_BETA_ATOL, grad_norm=out["grad_norm"],
+        grad_norm_ref=gn_ref, grad_norm_tol=gn_tol, beta=out["beta"].tolist(),
+        iterations=cfg["cox_iter"])
+    print(f"gate fit_cox_device ({cfg['cox_iter']} Newton steps) vs float64 "
+          f"numpy Breslow Newton: beta max_abs_err {err:.3e} (tol "
+          f"{COX_BETA_ATOL}); grad norm {out['grad_norm']:.4e} vs "
+          f"{gn_ref:.4e} (tol {gn_tol:.4e} = sqrt(N) x 2^-24 of its terms); "
+          f"peak {peak:.3f} GB (limit {COX_MAX_PEAK_GB})")
+    gate(err <= COX_BETA_ATOL, f"fit_cox_device beta off by {err}")
+    gate(abs(out["grad_norm"] - gn_ref) <= gn_tol,
+         f"fit_cox_device grad norm {out['grad_norm']} vs {gn_ref}")
+    gate(peak < COX_MAX_PEAK_GB, f"fit_cox_device peaked at {peak} GB")
+    k = cfg["cox_host_iter"]
+    host = timed("central_cox", lambda: central(
+        "survival", "central_cox", feature_cols=features, time_col="time",
+        event_col="event", n_iter=k), warmup=0)
+    dev_k = SV.fit_cox_device(dfed, p, grid, n_iter=k)
+    err = float(np.abs(np.asarray(host["beta"]) - dev_k["beta"]).max())
+    gn_err = abs(host["grad_norm"] - dev_k["grad_norm"])
+    res["central_cox"].update(max_abs_err=err, tol=COX_BETA_ATOL,
+                              grad_norm=host["grad_norm"],
+                              grad_norm_device=dev_k["grad_norm"],
+                              iterations=k)
+    print(f"gate central_cox ({k} Newton steps, host) vs fit_cox_device at "
+          f"{k}: beta max_abs_err {err:.3e} (tol {COX_BETA_ATOL}); grad norm"
+          f" {host['grad_norm']:.4e} vs {dev_k['grad_norm']:.4e} (tol 1e-3 "
+          f"relative + {gn_tol:.4e})")
+    gate(err <= COX_BETA_ATOL and host["event_times"] == grid.tolist(),
+         f"central_cox off fit_cox_device by {err}")
+    gate(gn_err <= 1e-3 * dev_k["grad_norm"] + gn_tol,
+         f"central_cox grad norm {host['grad_norm']} vs "
+         f"{dev_k['grad_norm']}")
+    if profile:
+        res["profile"] = {
+            "fit_cox_device": _profile_call(
+                torch, lambda: SV.fit_cox_device(dfed, p, grid,
+                                                 n_iter=cfg["cox_iter"]),
+                "fit_cox_device", res["fit_cox_device"]["ms"]),
+            "fit_device": _profile_call(
+                torch, lambda: LR.fit_device(dfed, p,
+                                             n_iter=cfg["logreg_iter"],
+                                             lr=cfg["logreg_lr"]),
+                "fit_device", res["fit_device"]["ms"]),
+        }
+
+    # --------------------------------------------------------------- summary
+    ref = dict(count=big_n, mean=px.mean(0), std=px.std(0, ddof=1),
+               min=px.min(0), max=px.max(0))
+    got = timed("summary_device", lambda: SM.summary_device(dfed))
+    err = max(float(np.abs(got[k2] - ref[k2]).max()) for k2 in ("mean",
+                                                               "std"))
+    exact = (int(got["count"]) == big_n
+             and np.array_equal(got["min"], ref["min"])
+             and np.array_equal(got["max"], ref["max"]))
+    res["summary_device"].update(max_abs_err=err, tol=SUMMARY_ATOL,
+                                 count_min_max_exact=exact)
+    print(f"gate summary_device vs numpy float64: mean/std max_abs_err "
+          f"{err:.3e} (tol {SUMMARY_ATOL}); count, min, max exact {exact}")
+    gate(err <= SUMMARY_ATOL and exact, "summary_device off numpy")
+    got = timed("central_summary", lambda: central(
+        "summary", "central_summary", columns=features), warmup=0)
+    err = max(float(abs(got[f][k2] - ref[k2][j]))
+              for j, f in enumerate(features) for k2 in ("mean", "std"))
+    exact = all(got[f]["count"] == big_n and got[f]["min"] == ref["min"][j]
+                and got[f]["max"] == ref["max"][j]
+                for j, f in enumerate(features))
+    res["central_summary"].update(max_abs_err=err, tol=SUMMARY_HOST_ATOL,
+                                  count_min_max_exact=exact)
+    print(f"gate central_summary (host) vs numpy float64: mean/std "
+          f"max_abs_err {err:.3e} (tol {SUMMARY_HOST_ATOL}); count, min, max"
+          f" exact {exact}")
+    gate(err <= SUMMARY_HOST_ATOL and exact, "central_summary off numpy")
+    del dfed, device_data, tx, tt, te, ty
+
+    # ---------------- the host centrals of phase 8's programs, its sizes
+    design = np.concatenate([np.ones((big_n, 1)), px], axis=1)
+    beta_true = rng.normal(size=p + 1) * 0.1
+    eta = design @ beta_true
+    glm_y = {
+        "gaussian": eta + rng.normal(0, 0.5, eta.shape),
+        "binomial": (rng.uniform(size=eta.shape)
+                     < 1 / (1 + np.exp(-eta))).astype(np.float64),
+        "poisson": rng.poisson(np.exp(eta)).astype(np.float64),
+    }
+    lab = np.exp(rng.normal(4.0, 0.5, size=big_n)).astype(np.float32)
+    r_p = rng.dirichlet(np.full(cfg["row_cats"], 0.5))
+    c_p = rng.dirichlet(np.full(cfg["col_cats"], 0.5))
+    rc = rng.choice(cfg["row_cats"], size=big_n, p=r_p)
+    cc = rng.choice(cfg["col_cats"], size=big_n, p=c_p)
+    edges = np.concatenate([[0], np.cumsum(counts)])
+    for i, frame in enumerate(host_data):
+        rows = slice(edges[i], edges[i + 1])
+        frame.update({f"y_{fam}": y[rows] for fam, y in glm_y.items()})
+        frame.update(lab=lab[rows].astype(np.float64), row_cat=rc[rows],
+                     col_cat=cc[rows])
+    for family, y in glm_y.items():
+        got = timed(f"central_glm_{family}", lambda: central(
+            "glm", "central_glm", family=family, feature_cols=features,
+            label_col=f"y_{family}"), warmup=0)
+        ref = _numpy_irls(family, design, y)
+        beta = np.asarray(got["coefficients"])
+        err = float(np.abs(beta - ref).max())
+        ok = (np.allclose(beta, ref, rtol=GLM_RTOL, atol=GLM_ATOL)
+              and got["converged"] and got["count"] == big_n)
+        res[f"central_glm_{family}"].update(
+            max_abs_err=err, rtol=GLM_RTOL, atol=GLM_ATOL,
+            iterations=got["iterations"], converged=got["converged"])
+        print(f"gate central_glm {family} (host, float64 on the card) vs "
+              f"numpy IRLS: max_abs_err {err:.3e} (rtol {GLM_RTOL}, atol "
+              f"{GLM_ATOL}), {got['iterations']} iterations, converged "
+              f"{got['converged']}")
+        gate(ok, f"central_glm {family} off numpy IRLS by {err}")
+    pooled_lab = np.sort(lab)
+    for q in cfg["quantiles"]:
+        got = timed(f"central_quantile_{q}", lambda: central(
+            "quantiles", "central_quantile", column="lab", q=q, tol=0.0),
+            warmup=0)
+        rank = float(pooled_lab[int(np.ceil(q * big_n)) - 1])
+        res[f"central_quantile_{q}"].update(
+            value=got["value"], rank_value=rank,
+            task_rounds=got["task_rounds"])
+        print(f"gate central_quantile {q} (host, 64 bisection rounds): "
+              f"{got['value']!r} vs the rank value {rank!r} (exact), "
+              f"{got['task_rounds']} task rounds")
+        gate(got["value"] == rank and got["n"] == big_n,
+             f"central_quantile {q}: {got['value']} != {rank}")
+    got = timed("central_crosstab", lambda: central(
+        "stats", "central_crosstab", row_col="row_cat", col_col="col_cat",
+        min_cell_count=cfg["min_cell_count"]), warmup=0)
+    total: dict = {}
+    for i in range(n_s):
+        rows = slice(edges[i], edges[i + 1])
+        pairs, nums = np.unique(np.stack([rc[rows], cc[rows]]), axis=1,
+                                return_counts=True)
+        for (r, c), m in zip(pairs.T.tolist(), nums.tolist()):
+            key = (str(r), str(c))
+            poisoned = m < cfg["min_cell_count"] or total.get(key, 0) is None
+            total[key] = None if poisoned else total.get(key, 0) + m
+    rows_s = sorted({r for r, _ in total})
+    cols_s = sorted({c for _, c in total})
+    expect = [[total.get((r, c), 0) for c in cols_s] for r in rows_s]
+    exact = (got["rows"] == rows_s and got["columns"] == cols_s
+             and got["table"] == expect)
+    res["central_crosstab"].update(exact=exact, poisoned_cells=sum(
+        v is None for row in expect for v in row))
+    print(f"gate central_crosstab (host): table == pooled counts with the "
+          f"poisoning rule {exact} (exact)")
+    gate(exact, "central_crosstab differs from the pooled counts")
+    got = timed("central_correlation", lambda: central(
+        "stats", "central_correlation", columns=features), warmup=0)
+    err = float(np.abs(np.asarray(got["matrix"]) - np.corrcoef(px.T)).max())
+    res["central_correlation"].update(max_abs_err=err, tol=CORR_ATOL)
+    print(f"gate central_correlation (host) vs np.corrcoef: max_abs_err "
+          f"{err:.3e} (tol {CORR_ATOL})")
+    gate(err <= CORR_ATOL and got["n"] == big_n,
+         f"central_correlation off np.corrcoef by {err}")
+    hfed.close()
+    del hfed, host_data
+
+    vs, vn = cfg["vertical_stations"], cfg["vertical_rows"]
+    xv = rng.standard_normal((vs, vn, p))
+    w_true = rng.normal(size=(vs, p)) * 0.3
+    yv = (rng.uniform(size=vn) < 1 / (1 + np.exp(
+        -(np.einsum("snp,sp->n", xv, w_true) - 0.2)))).astype(np.float64)
+    names = [[f"v{s}_{j}" for j in range(p)] for s in range(vs)]
+    frames = [{c: xv[s, :, j] for j, c in enumerate(names[s])}
+              for s in range(vs)]
+    frames[0]["y"] = yv
+    vfed = federation_from_datasets(frames, {"vertical": vertical},
+                                    device=dev, executor_workers=vs)
+    k = cfg["vertical_host_iter"]
+    try:
+        def vcall():
+            task = vfed.create_task("vertical", {
+                "method": "central_vertical_logistic", "kwargs": dict(
+                    feature_map={str(s): c for s, c in enumerate(names)},
+                    label_org=0, label_col="y", n_iter=k,
+                    lr=cfg["vertical_lr"])}, organizations=[0])
+            return vfed.wait_for_results(task.id)[0]
+
+        got = timed("central_vertical_logistic", vcall, warmup=0)
+    finally:
+        vfed.close()
+    xcat = np.concatenate(list(xv), axis=1)
+    w_ref, b_ref = _numpy_logreg(xcat, yv, k, cfg["vertical_lr"])
+    w_got = np.concatenate([got["weights"][str(s)] for s in range(vs)])
+    err = max(float(np.abs(w_got - w_ref).max()), abs(got["bias"] - b_ref))
+    res["central_vertical_logistic"].update(
+        max_abs_err=err, tol=VERTICAL_ATOL, iterations=k,
+        ms_per_iteration=res["central_vertical_logistic"]["ms"] / k)
+    print(f"gate central_vertical_logistic (host, {vs} x {vn}, {k} "
+          f"iterations) vs numpy pooled GD: max_abs_err {err:.3e} (tol "
+          f"{VERTICAL_ATOL})")
+    gate(err <= VERTICAL_ATOL, f"central_vertical_logistic off by {err}")
+
+    launches = dict(fa.flash_forward_cuda.variant_launches)
+    print(f"workloads flash launches: {launches} (0 expected: products, "
+          f"reductions and the secure sum's masks)")
+    gate(sum(launches.values()) == 0,
+         f"the workloads launched a flash kernel: {launches}")
+    for name, r in res.items():
+        if name == "profile":
+            continue
+        extra = {k2: v for k2, v in r.items()
+                 if k2 not in ("ms", "runs_ms", "peak_mem_gb", "beta")}
+        print(f"workload {name}: {r['ms']:.3f} ms per call (median of 3; "
+              f"runs {[round(v, 3) for v in r['runs_ms']]}), peak "
+              f"{r['peak_mem_gb']:.3f} GB, {extra}")
+    check(not failed, "workload gates failed: " + "; ".join(failed))
+    return dict(config=cfg, programs=res, launches=launches)
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -2509,6 +3020,7 @@ def main(argv: list[str]) -> int:
     task_plane = phase_task_plane(fa, torch, dev,
                                   profile="--profile" in argv)
     planes = phase_planes(fa, torch, dev)
+    workloads = phase_workloads(fa, torch, dev, profile="--profile" in argv)
     print(f"fedavg-cnn: {fedavg['fused_ms_per_round']:.3f} ms/round fused "
           f"({fedavg['rounds_per_s']:.1f} rounds/s), "
           f"{fedavg['eager_ms_per_round']:.3f} ms/round eager, "
@@ -2561,6 +3073,10 @@ def main(argv: list[str]) -> int:
           f"{ln['fused_detached_ms']:.3f} ms; capture {ob['capture_ms']} ms "
           f"(warm-up {ob['warmup_ms']} ms), "
           f"{ob['capture_allocated_bytes']} bytes on {card}")
+    for name, r in workloads["programs"].items():
+        if name != "profile":
+            print(f"workload {name}: {r['ms']:.3f} ms per call, peak "
+                  f"{r['peak_mem_gb']:.3f} GB on {card}")
 
     # each kernel at the shape and dtype it serves: the tensor-core kernels
     # at the main path's head dim 128, the CUDA-core one in bf16 at head
@@ -2582,6 +3098,7 @@ def main(argv: list[str]) -> int:
         launches_analysis=analysis["launches"][variant],
         launches_task_plane=task_plane["launches"][variant],
         launches_planes=planes["launches"][variant],
+        launches_workloads=workloads["launches"][variant],
         **{key: times[case][variant][key] for key in (
             "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
@@ -2591,7 +3108,8 @@ def main(argv: list[str]) -> int:
                   max_abs_err_cases=max_err_cases, slice=slice_res,
                   ring=ring, parallel_ops=parallel_ops, wire=wire,
                   fedavg=fedavg, compression=compression, analysis=analysis,
-                  task_plane=task_plane, planes=planes, kernels=kernels,
+                  task_plane=task_plane, planes=planes,
+                  workloads=workloads, kernels=kernels,
                   times=times, profile=prof,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(HERE, "chiprun_out")
@@ -2602,7 +3120,8 @@ def main(argv: list[str]) -> int:
                       "parallel_ops": parallel_ops, "wire": wire,
                       "fedavg": fedavg,
                       "compression": compression, "analysis": analysis,
-                      "task_plane": task_plane, "planes": planes}))
+                      "task_plane": task_plane, "planes": planes,
+                      "workloads": workloads}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

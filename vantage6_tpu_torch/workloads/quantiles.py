@@ -1,35 +1,179 @@
-"""Federated quantiles by bisection, on the device.
+"""Federated quantiles (median and friends) by iterative bisection.
 
-Counterpart of ``quantile_device`` in ``vantage6_tpu/workloads/quantiles.py``:
-each bisection step proposes a cut, every station counts its rows at or
-below it (one masked count under ``fed_map``), and one cross-station sum
-gives the global rank; ``n_iter`` halvings converge on the smallest value
-whose global rank reaches ``ceil(q * n)``. The whole loop stays on the
-device: the ``>= target`` test is a ``torch.where``, and only the final
-values are pulled to the host, where the bracket guards run.
+Counterpart of ``vantage6_tpu/workloads/quantiles.py``. No station ever
+shares a value: each round the central proposes a cut point and every
+station reports only HOW MANY of its rows fall at or below it; bisection
+converges on the value whose global rank matches the requested quantile.
+
+- host mode (numpy only, the reference's task shape): ``partial_count_below``
+  and ``partial_bounds`` per station over a frame (any mapping of column
+  name to array; NaN dropped as pandas' ``dropna``), ``central_quantile``
+  driving one task round a bisection step;
+- device mode: ``quantile_device``, the whole loop on the device. Each
+  step's per-station masked counts run under ``fed_map``, one
+  cross-station sum gives the global rank, the ``>= target`` test is a
+  ``torch.where``, and only the final values are pulled to the host, where
+  the bracket guards run. Its calls are observed as the reference's,
+  ``quantile.bisection`` (``runtime/profiling.py``).
 
 Bounds: pass ``lo``/``hi`` when the schema bounds are known; without them
-the masked global min/max is used (a stated disclosure of two extreme
-values per federation, as in host mode).
-
-The JAX package caches the compiled bisection per mesh and ``n_iter``
-(``RunnerCache``); eager torch compiles nothing, so there is no cache.
-
-Not ported yet: the host mode (``partial_count_below``, ``partial_bounds``,
-``central_quantile``), which drives tasks through the algorithm client
-(ROADMAP.md queue 1 items 9 and 10).
+each station's exact min/max is used (a stated disclosure of two extreme
+values per station, as in the reference). The JAX package caches the
+compiled bisection per mesh and ``n_iter`` (``RunnerCache``); eager torch
+compiles nothing, so there is no cache.
 """
 from __future__ import annotations
 
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
+from vantage6_tpu_torch.algorithm.decorators import algorithm_client, data
 from vantage6_tpu_torch.core.mesh import FederationMesh
 from vantage6_tpu_torch.fed.collectives import fed_sum
+from vantage6_tpu_torch.runtime.profiling import observed_jit
+from vantage6_tpu_torch.workloads._columns import dropna
 
 
+# ----------------------------------------------------------------- host mode
+@data(1)
+def partial_count_below(df: Any, column: str, cut: float) -> dict[str, Any]:
+    """#rows with value <= cut, plus this station's total (complete-case)."""
+    vals = dropna(df[column])
+    return {"below": int((vals <= cut).sum()), "count": int(len(vals))}
+
+
+@data(1)
+def partial_bounds(df: Any, column: str) -> dict[str, Any]:
+    """Local [min, max] + row count of the column — the documented
+    disclosure the range round costs when the caller cannot supply lo/hi
+    (the count rides along so no extra rank round is needed)."""
+    vals = dropna(df[column])
+    if len(vals) == 0:
+        return {"lo": None, "hi": None, "count": 0}
+    return {
+        "lo": float(vals.min()),
+        "hi": float(vals.max()),
+        "count": int(len(vals)),
+    }
+
+
+@algorithm_client
+def central_quantile(
+    client: Any,
+    column: str,
+    q: float = 0.5,
+    lo: float | None = None,
+    hi: float | None = None,
+    tol: float = 1e-6,
+    max_iter: int = 64,
+    organizations: list[int] | None = None,
+) -> dict[str, Any]:
+    """The q-quantile of the pooled column without pooling any rows.
+
+    Bisection on the value axis: maintains [lo, hi] bracketing the value
+    whose global rank is ceil(q * n); each bisection step is one
+    count-below task round (``max_iter`` bounds the bisection steps; the
+    returned ``task_rounds`` additionally counts the bounds/bracket
+    rounds). 64 steps halve the bracket to ~2^-64 of its width — float64
+    exact for any practical range.
+    """
+    if not 0.0 < q < 1.0:
+        raise ValueError("q must be in (0, 1)")
+    orgs = organizations or [o["id"] for o in client.organization.list()]
+
+    def fanout(method: str, kwargs: dict) -> list[dict]:
+        task = client.task.create(
+            input_={"method": method, "kwargs": kwargs},
+            organizations=orgs,
+            name=f"quantile_{method}",
+        )
+        return client.wait_for_results(task_id=task["id"])
+
+    def count_below(cut: float) -> int:
+        return sum(
+            p["below"]
+            for p in fanout(
+                "partial_count_below", {"column": column, "cut": cut}
+            )
+        )
+
+    task_rounds = 0
+    bounds_rounds = 0
+    auto_bounds = lo is None or hi is None
+    n = None
+    if auto_bounds:
+        parts = fanout("partial_bounds", {"column": column})
+        task_rounds += 1
+        bounds_rounds = 1
+        los = [p["lo"] for p in parts if p["lo"] is not None]
+        his = [p["hi"] for p in parts if p["hi"] is not None]
+        if not los:
+            raise ValueError("no station holds any rows for this column")
+        lo = min(los) if lo is None else lo
+        hi = max(his) if hi is None else hi
+        n = sum(p["count"] for p in parts)
+    lo, hi = float(lo), float(hi)
+    if not hi >= lo:
+        raise ValueError(f"invalid range [{lo}, {hi}]")
+
+    if n is None:
+        # caller-supplied bounds: one rank round at hi learns n AND proves
+        # the quantile is bracketed from above
+        parts = fanout("partial_count_below", {"column": column, "cut": hi})
+        task_rounds += 1
+        n = sum(p["count"] for p in parts)
+        if n == 0:
+            raise ValueError("no rows across the federation")
+        below_hi = sum(p["below"] for p in parts)
+        target = int(np.ceil(q * n))
+        if below_hi < target:
+            # values above hi exist (caller-supplied hi too small): the
+            # quantile is not bracketed — fail loudly rather than clamp
+            raise ValueError(
+                f"hi={hi} has global rank {below_hi} < target {target}; "
+                "widen the range"
+            )
+        # ...and the lo side must bracket from BELOW, or bisection would
+        # silently converge onto the caller's lo and return a wrong value
+        below_lo = count_below(lo)
+        task_rounds += 1
+        if below_lo >= target:
+            raise ValueError(
+                f"lo={lo} already has global rank {below_lo} >= target "
+                f"{target}: the quantile lies at or below lo; lower lo"
+            )
+    else:
+        if n == 0:
+            raise ValueError("no rows across the federation")
+        target = int(np.ceil(q * n))
+        # auto bounds: hi is the true global max (rank n >= target) and lo
+        # the true min — bisection converges to the min when the quantile
+        # IS the min, so no extra bracket rounds are needed
+
+    bisections = 0
+    while hi - lo > tol and bisections < max_iter:
+        mid = 0.5 * (lo + hi)
+        if count_below(mid) >= target:
+            hi = mid
+        else:
+            lo = mid
+        task_rounds += 1
+        bisections += 1
+    return {
+        "quantile": q,
+        "value": float(hi),
+        "n": int(n),
+        "bisection_steps": bisections,
+        "task_rounds": task_rounds,
+        "bounds_rounds": bounds_rounds,
+        "bracket": [float(lo), float(hi)],
+    }
+
+
+# --------------------------------------------------------------- device mode
 def _bisect(mesh: FederationMesh, sx: torch.Tensor, m: torch.Tensor,
             q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
             n_iter: int):
@@ -61,6 +205,11 @@ def _bisect(mesh: FederationMesh, sx: torch.Tensor, m: torch.Tensor,
     return bhi, n, count_below(lo), count_below(hi)
 
 
+#: the whole bisection, one observed dispatch a call (the reference's label)
+_BISECTION = observed_jit("quantile.bisection", _bisect,
+                          static_argnames=("n_iter",))
+
+
 def quantile_device(
     mesh: FederationMesh,
     sx: Any,        # [S, n_max] padded station values
@@ -89,9 +238,9 @@ def quantile_device(
         return torch.tensor(float("nan") if v is None else v, dtype=sx.dtype,
                             device=sx.device)
 
-    value, n, below_lo, below_hi = _bisect(
+    value, n, below_lo, below_hi = _BISECTION(
         mesh, sx, m, torch.tensor(q, dtype=sx.dtype, device=sx.device),
-        bound(lo), bound(hi), n_iter)
+        bound(lo), bound(hi), n_iter=n_iter)
     n = int(n.item())
     if n == 0:
         raise ValueError("no rows across the federation")

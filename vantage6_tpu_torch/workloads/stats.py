@@ -1,7 +1,6 @@
-"""Federated descriptive statistics on the device: correlation and
-crosstab.
+"""Federated descriptive statistics: crosstab and correlation.
 
-Counterpart of the device half of ``vantage6_tpu/workloads/stats.py``:
+Counterpart of ``vantage6_tpu/workloads/stats.py``. The device half:
 
 - ``correlation_device``: every station's moment block (n, sum x, x'x)
   over its own rows, one cross-station sum, and the Pearson matrix on the
@@ -11,16 +10,20 @@ Counterpart of the device half of ``vantage6_tpu/workloads/stats.py``:
   columns as exact integer counts, with the host mode's disclosure rule (a
   station cell in (0, min_cell_count) poisons the pooled cell);
 - ``encode_crosstab``: the host-side prep helper turning per-station
-  columns into padded integer codes over the shared vocabularies.
+  columns into padded integer codes over the shared vocabularies;
+
+and the host half, numpy only, in the reference's task shape:
+
+- ``partial_crosstab``/``central_crosstab``: category-pair counts per
+  station with cells under ``min_cell_count`` suppressed at the station
+  (-1), summed by the central, a suppressed cell poisoning its total;
+- ``partial_moments``/``central_correlation``: the complete-case moment
+  block per station, the Pearson matrix from the pooled moments.
 
 A station's data is any mapping from column name to array (a pandas
-DataFrame is one; the port does not import pandas).
-
-Not ported yet: the host partials and centrals (``partial_crosstab``,
-``central_crosstab``, ``partial_correlation``, ``central_correlation``),
-which drive tasks through the algorithm client and its decorators
-(``algorithm/context.py``, ``algorithm/decorators.py``; ROADMAP.md queue 1
-items 9 and 10).
+DataFrame is one; the port does not import pandas). Category values are
+compared as the strings of the column's own dtype, as pandas'
+``astype(str)`` gives them (an int column ``'1'``, a float one ``'1.0'``).
 """
 from __future__ import annotations
 
@@ -29,9 +32,134 @@ from typing import Any
 import numpy as np
 import torch
 
+from vantage6_tpu_torch.algorithm.decorators import algorithm_client, data
 from vantage6_tpu_torch.core.mesh import FederationMesh
 from vantage6_tpu_torch.fed.collectives import fed_sum
 from vantage6_tpu_torch.utils.datasets import pad_shards
+from vantage6_tpu_torch.workloads._columns import column
+from vantage6_tpu_torch.workloads._columns import columns as stack_columns
+
+
+# ------------------------------------------------------------------ crosstab
+@data(1)
+def partial_crosstab(
+    df: Any,
+    row_col: str,
+    col_col: str,
+    min_cell_count: int = 0,
+) -> dict[str, Any]:
+    """Category-pair counts on this station's rows.
+
+    Cells below ``min_cell_count`` are SUPPRESSED (reported as -1): the
+    reference's disclosure-control stance — a cell of 1 in a rare category
+    can identify a person. Suppression happens AT the station, before
+    anything crosses the wire.
+    """
+    counts: dict[tuple[str, str], int] = {}
+    for r, c in zip(column(df, row_col).astype(str).tolist(),
+                    column(df, col_col).astype(str).tolist()):
+        counts[(r, c)] = counts.get((r, c), 0) + 1
+    cells = [
+        [r, c, (n if n >= min_cell_count else -1)]
+        for (r, c), n in sorted(counts.items())
+    ]
+    return {"cells": cells, "suppressed_below": min_cell_count}
+
+
+@algorithm_client
+def central_crosstab(
+    client: Any,
+    row_col: str,
+    col_col: str,
+    min_cell_count: int = 0,
+    organizations: list[int] | None = None,
+) -> dict[str, Any]:
+    """Pooled contingency table. A suppressed station cell poisons the
+    pooled cell (reported as null): summing around a hidden count would
+    fabricate a total."""
+    orgs = organizations or [o["id"] for o in client.organization.list()]
+    task = client.task.create(
+        input_={
+            "method": "partial_crosstab",
+            "kwargs": {
+                "row_col": row_col,
+                "col_col": col_col,
+                "min_cell_count": min_cell_count,
+            },
+        },
+        organizations=orgs,
+        name="crosstab_partial",
+    )
+    parts = client.wait_for_results(task_id=task["id"])
+    total: dict[tuple[str, str], int | None] = {}
+    for part in parts:
+        for r, c, n in part["cells"]:
+            key = (str(r), str(c))
+            if n < 0 or total.get(key, 0) is None:
+                total[key] = None  # suppressed anywhere -> unknown total
+            else:
+                total[key] = total.get(key, 0) + int(n)
+    rows = sorted({r for r, _ in total})
+    cols = sorted({c for _, c in total})
+    table = [
+        [total.get((r, c), 0) for c in cols]
+        for r in rows
+    ]
+    return {"rows": rows, "columns": cols, "table": table,
+            "suppressed_below": min_cell_count}
+
+
+# -------------------------------------------------------------- correlation
+@data(1)
+def partial_moments(df: Any, columns: list[str]) -> dict[str, Any]:
+    """Per-station moment block: n, sum x [p], x'x [p, p] over rows with no
+    missing value in ``columns`` (complete-case, like the reference)."""
+    x = stack_columns(df, columns, np.float64)
+    x = x[~np.isnan(x).any(axis=1)]
+    return {
+        "n": int(x.shape[0]),
+        "sum": np.sum(x, axis=0),
+        "outer": x.T @ x,
+    }
+
+
+def _pearson_from_moments(n: float, s: np.ndarray, o: np.ndarray) -> np.ndarray:
+    """Correlation matrix from pooled (n, sum x, x'x)."""
+    mean = s / n
+    cov = o / n - np.outer(mean, mean)
+    sd = np.sqrt(np.clip(np.diag(cov), 1e-30, None))
+    return cov / np.outer(sd, sd)
+
+
+@algorithm_client
+def central_correlation(
+    client: Any,
+    columns: list[str],
+    organizations: list[int] | None = None,
+) -> dict[str, Any]:
+    """Pooled Pearson correlation matrix — equals the matrix on the
+    concatenated rows (moments are additive)."""
+    orgs = organizations or [o["id"] for o in client.organization.list()]
+    task = client.task.create(
+        input_={"method": "partial_moments", "kwargs": {"columns": columns}},
+        organizations=orgs,
+        name="correlation_partial",
+    )
+    parts = client.wait_for_results(task_id=task["id"])
+    n = float(sum(p["n"] for p in parts))
+    if n < 2:
+        raise ValueError("fewer than 2 complete rows across the federation")
+    s = np.sum([np.asarray(p["sum"]) for p in parts], axis=0)
+    o = np.sum([np.asarray(p["outer"]) for p in parts], axis=0)
+    corr = _pearson_from_moments(n, s, o)
+    return {
+        "columns": columns,
+        "matrix": [[float(v) for v in row] for row in corr],
+        "n": int(n),
+    }
+
+
+# ------------------------------------------------------ correlation (device)
 
 
 def correlation_device(

@@ -1,7 +1,6 @@
-"""Vertically-partitioned federated logistic regression on the device.
+"""Vertically-partitioned federated logistic regression.
 
-Counterpart of the device half of ``vantage6_tpu/workloads/vertical.py``:
-the same patients at every station, each station holding a different
+Counterpart of ``vantage6_tpu/workloads/vertical.py``: the same patients at every station, each station holding a different
 feature block, the labels with the aggregator. Full-batch gradient descent
 on the pooled logistic objective: each station computes ``z_s = X_s w_s``
 on its own block, the aggregator sums ``eta = b + sum_s z_s`` and forms the
@@ -10,9 +9,12 @@ pooled gradient descent on the column-concatenated design; the per-sample
 partial predictors and the residual cross the aggregator boundary (the
 stated exposure of crypto-free vertical LR).
 
-Not ported yet: the host mode (``partial_*``,
-``central_vertical_logistic``), which drives tasks through the algorithm
-client (ROADMAP.md queue 1 items 9 and 10).
+Both modes are here: the host mode in the reference's task shape, numpy
+float64 only (``partial_labels``, ``partial_vertical_predictor`` and
+``partial_vertical_grad`` per station, ``central_vertical_logistic``
+orchestrating one predictor and one gradient fan-out an iteration), and
+the device mode, ``fit_vertical_logistic_device``, the whole loop on the
+device with one cross-station sum an iteration.
 """
 from __future__ import annotations
 
@@ -21,8 +23,120 @@ from typing import Any
 import numpy as np
 import torch
 
+from vantage6_tpu_torch.algorithm.decorators import algorithm_client, data
 from vantage6_tpu_torch.core.mesh import FederationMesh
 from vantage6_tpu_torch.fed.collectives import fed_sum
+from vantage6_tpu_torch.workloads._columns import column, columns
+
+
+# ----------------------------------------------------------------- host mode
+@data(1)
+def partial_labels(df: Any, label_col: str) -> dict[str, Any]:
+    """The label party's labels, to the AGGREGATOR only (documented
+    disclosure: the aggregator is the label holder's delegate here, as in
+    the ecosystem's vertical designs where the 'active party' runs the
+    central function)."""
+    y = column(df, label_col, np.float32)
+    return {"y": [float(v) for v in y], "n": int(y.shape[0])}
+
+
+@data(1)
+def partial_vertical_predictor(
+    df: Any, feature_cols: list[str], weights: list[float]
+) -> dict[str, Any]:
+    """This station's partial linear predictor z = X_block @ w_block."""
+    x = columns(df, feature_cols, np.float64)
+    z = x @ np.asarray(weights, np.float64)
+    return {"z": [float(v) for v in z]}
+
+
+@data(1)
+def partial_vertical_grad(
+    df: Any, feature_cols: list[str], residual: list[float]
+) -> dict[str, Any]:
+    """This station's gradient block X_block' r / n (aggregates over rows —
+    never rows)."""
+    x = columns(df, feature_cols, np.float64)
+    r = np.asarray(residual, np.float64)
+    g = x.T @ r / max(len(r), 1)
+    return {"grad": [float(v) for v in g]}
+
+
+@algorithm_client
+def central_vertical_logistic(
+    client: Any,
+    feature_map: dict[str, list[str]],  # org id (as str) -> its columns
+    label_org: int,
+    label_col: str,
+    n_iter: int = 100,
+    lr: float = 1.0,
+    l2: float = 0.0,
+) -> dict[str, Any]:
+    """Vertical LR, reference-shaped rounds: predictor fan-out + residual
+    broadcast + gradient fan-out per iteration. Weight blocks are stored
+    by the aggregator but only ever applied at their own station."""
+    if n_iter < 1:
+        raise ValueError("n_iter must be >= 1")
+    orgs = [int(k) for k in feature_map]
+
+    def fanout_per_org(method: str, per_org_kwargs: dict[int, dict]) -> dict:
+        # submit ALL per-org tasks first, then collect: serial submit+wait
+        # would grow every round's wall-clock S-fold
+        tasks = {
+            org: client.task.create(
+                input_={"method": method, "kwargs": kwargs},
+                organizations=[org],
+                name=f"vlr_{method}",
+            )
+            for org, kwargs in per_org_kwargs.items()
+        }
+        return {
+            org: client.wait_for_results(task_id=t["id"])[0]
+            for org, t in tasks.items()
+        }
+
+    lab = fanout_per_org(
+        "partial_labels", {label_org: {"label_col": label_col}}
+    )[label_org]
+    y = np.asarray(lab["y"], np.float64)
+    n = lab["n"]
+
+    weights = {o: np.zeros(len(feature_map[str(o)]), np.float64) for o in orgs}
+    bias = 0.0
+    losses = []
+    for _ in range(n_iter):
+        zs = fanout_per_org(
+            "partial_vertical_predictor",
+            {o: {"feature_cols": feature_map[str(o)],
+                 "weights": [float(v) for v in weights[o]]} for o in orgs},
+        )
+        eta = bias + np.sum([np.asarray(z["z"]) for z in zs.values()], axis=0)
+        mu = 1.0 / (1.0 + np.exp(-eta))
+        r = mu - y
+        eps = 1e-12
+        losses.append(float(-np.mean(
+            y * np.log(mu + eps) + (1 - y) * np.log(1 - mu + eps)
+        )))
+        grads = fanout_per_org(
+            "partial_vertical_grad",
+            {o: {"feature_cols": feature_map[str(o)],
+                 "residual": [float(v) for v in r]} for o in orgs},
+        )
+        for o in orgs:
+            weights[o] -= lr * (
+                np.asarray(grads[o]["grad"]) + l2 * weights[o]
+            )
+        bias -= lr * float(np.mean(r))
+    return {
+        "weights": {str(o): [float(v) for v in weights[o]] for o in orgs},
+        "bias": float(bias),
+        "losses": losses,
+        "n": n,
+        "iterations": n_iter,
+    }
+
+
+# --------------------------------------------------------------- device mode
 
 
 def stack_vertical_blocks(
@@ -33,7 +147,7 @@ def stack_vertical_blocks(
     must hold the same rows in the same order; a frame is any mapping of
     column name to array. Zero-padded feature columns add zero to z and
     get zero gradient, so no feature mask is needed."""
-    blocks = [np.stack([np.asarray(f[c], np.float32) for c in cols], axis=1)
+    blocks = [columns(f, cols, np.float32)
               for f, cols in zip(frames, feature_cols_per_station,
                                  strict=True)]
     ns = {b.shape[0] for b in blocks}
