@@ -162,6 +162,27 @@ Phases, each of which raises (exit code 1) on failure:
    (median of 3, synchronised) and peak memory of each. No flash kernel
    may launch.
 
+13. multi-process federation on an NCCL group of one rank (the card's
+   only rank: NCCL cannot put two ranks on one card), joined the way a
+   deployment joins, through ``core.distributed.initialize`` from
+   ``V6T_COORDINATOR``/``V6T_NUM_PROCESSES``/``V6T_PROCESS_ID``; the
+   backend and NCCL version printed. ``global_mesh``, ``local_stations``
+   and ``stack_local_shards`` at 32 stations; ``fed_mean_scattered_tree``
+   over one flagship round's CNN deltas ``[32, 421642]`` through NCCL's
+   reduce-scatter and all-gather, bit-identical to the one-card form in
+   f32 and in bf16 comm, each timed (CUDA events, in turns); one eager
+   FedAvg round of phase 6's flagship on the group mesh, bit-identical to
+   the round on the plain mesh from the same state and indices (cuDNN
+   deterministic), ms per round of each, in turns; ``device_column_stats``
+   over one station of 65,536 rows against float64 numpy, and
+   ``device_logistic_fit`` over 65,536 rows x 16 features (5 rounds of 4
+   local steps, lr 0.5) in its three ``agg_mode``s against a float64 numpy
+   replay of the same rounds, ms per call (median of 3, synchronised) and
+   peak memory; the per-rank ``ring_attention`` (one rank) against
+   ``ring_attention_sharded`` at one shard and ``tp_mlp`` over the group
+   against the dense MLP at phase 9's shapes, errors and ms. The group is
+   destroyed at the end; no flash kernel may launch.
+
 ``--profile`` traces one more round of each run of phases 4 and 9
 (torch.profiler) and reports device time by kernel group and under the
 ``attention_fwd``/``attention_bwd`` profiler ranges, one fused round of
@@ -2943,6 +2964,413 @@ def phase_workloads(fa, torch, dev, profile=False):
     check(not failed, "workload gates failed: " + "; ".join(failed))
     return dict(config=cfg, programs=res, launches=launches)
 
+# phase 13: one flagship round's sizes (phase 6) and one hospital's
+# registry extract (phase 8's station of 65,536 patients, 16 covariates)
+DISTRIBUTED = dict(stations=FEDAVG["stations"], rows=65536, features=16,
+                   rounds=5, local_steps=4, lr=0.5, seed=13)
+DIST_MEAN_RTOL = 1e-5  # the two-rank CPU test's tolerances for the stats
+DIST_STD_RTOL = 1e-4
+# f32 logistic fit against the float64 replay: 20 GD steps over 65,536
+# rows, each gradient a sum whose f32 rounding is ~1e-6 relative
+DIST_LOGREG_ATOL = 2e-5
+# scattered_bf16 rounds the model to bf16 each round; the device's f32
+# and the replay's float64 can round to neighbouring bf16 values: two bf16
+# ulps (2^-7 each below 2) of the weights
+DIST_LOGREG_BF16_ATOL = 2 * 2.0**-7
+
+
+def _engine_station(i):
+    """Station ``i``'s columns for phase 13's device-engine tasks (a dict
+    of numpy columns, as a process loads only its own): ``age`` N(50, 10)
+    and 16 N(0, 1) covariates with logistic labels. Returns (columns,
+    feature names)."""
+    cfg = DISTRIBUTED
+    rng = np.random.default_rng(cfg["seed"] + i)
+    n, p = cfg["rows"], cfg["features"]
+    x = rng.standard_normal((n, p)).astype(np.float32)
+    w_star = np.linspace(-1.0, 1.0, p)
+    prob = 1 / (1 + np.exp(-(x.astype(np.float64) @ w_star + 0.2)))
+    features = [f"f{j}" for j in range(p)]
+    cols = {"age": rng.normal(50.0, 10.0, n),
+            "label": (rng.uniform(size=n) < prob).astype(np.float64),
+            **{f: x[:, j] for j, f in enumerate(features)}}
+    return cols, features
+
+
+def _replay_logistic(stations, rounds, local_steps, lr, bf16):
+    """float64 replay of ``device_logistic_fit`` over ``stations`` (a list
+    of (x, y)): each round every station's local steps from the global
+    model with the reference's subgradients (at a logit of exactly 0 the
+    loss's slope is -y, not 0.5 - y: ``jnp.maximum`` splits, ``jnp.abs``
+    takes slope 1), then the row-count-weighted mean, rounded to bf16 with
+    ``bf16`` as the wire does."""
+    import torch
+
+    p = stations[0][0].shape[1]
+    w, b = np.zeros(p), 0.0
+    total = sum(len(y) for _, y in stations)
+    for _ in range(rounds):
+        merged_w, merged_b = np.zeros(p), 0.0
+        for x, y in stations:
+            lw, lb = w, b
+            for _ in range(local_steps):
+                z = x @ lw + lb
+                r = np.where(z == 0, -y, 1 / (1 + np.exp(-z)) - y)
+                lw = lw - lr * (x.T @ r) / len(y)
+                lb = lb - lr * np.sum(r) / len(y)
+            merged_w = merged_w + len(y) / total * lw
+            merged_b = merged_b + len(y) / total * lb
+        w, b = merged_w, merged_b
+        if bf16:
+            w = (torch.tensor(w, dtype=torch.float32).to(torch.bfloat16)
+                 .double().numpy())
+            b = float(torch.tensor(b, dtype=torch.float32)
+                      .to(torch.bfloat16))
+    return w, b
+
+
+def _engine_checks(stations, stats, fits):
+    """Phase 13's gates on one run of the device engine over ``stations``
+    (a list of ``_engine_station`` outputs): the column stats against
+    float64 numpy, each ``agg_mode``'s fit against the float64 replay.
+    Returns the errors, each beside its tolerance."""
+    cfg = DISTRIBUTED
+    age = np.concatenate([c["age"].astype(np.float32).astype(np.float64)
+                          for c, _ in stations])
+    out = dict(rel_err_mean=abs(stats["mean"] - age.mean()) / abs(age.mean()),
+               rel_err_std=abs(stats["std"] - age.std()) / age.std())
+    check(stats["count"] == age.size
+          and out["rel_err_mean"] <= DIST_MEAN_RTOL
+          and out["rel_err_std"] <= DIST_STD_RTOL
+          and stats["n_stations"] == len(stations)
+          and stats["global_devices"] == len(stations),
+          f"device_column_stats off numpy: {stats}")
+    xy = [(np.stack([c[f] for f in feats], 1).astype(np.float64), c["label"])
+          for c, feats in stations]
+    for mode, fit in fits.items():
+        w_ref, b_ref = _replay_logistic(xy, cfg["rounds"], cfg["local_steps"],
+                                        cfg["lr"], bf16=mode.endswith("bf16"))
+        err = max(np.max(np.abs(np.asarray(fit["weights"]) - w_ref)),
+                  abs(fit["bias"] - b_ref))
+        tol = (DIST_LOGREG_BF16_ATOL if mode.endswith("bf16")
+               else DIST_LOGREG_ATOL)
+        check(err <= tol, f"device_logistic_fit {mode} off the float64 "
+                          f"replay: {err:.3e} > {tol:.3e}")
+        out[mode] = dict(max_abs_err=err, tol=tol,
+                         local_accuracy=fit["local_accuracy"])
+    return out
+
+
+AGG_MODES = ("replicated", "scattered", "scattered_bf16")
+
+# one rank of phase 13's two-rank gloo run on the card: joins the group
+# with torch.distributed itself (initialize() picks NCCL for a card) and
+# runs the device engine's tasks on its own station only
+_GLOO_RANK = """
+import json, sys
+import torch
+import torch.distributed as dist
+rank, world, init, here, device = (int(sys.argv[1]), int(sys.argv[2]),
+                                   sys.argv[3], sys.argv[4], sys.argv[5])
+sys.path.insert(0, here)
+import chip_smoke as cs
+cs.DISTRIBUTED.update(json.loads(sys.argv[6]))  # the parent's sizes
+from vantage6_tpu_torch.core import distributed as D
+from vantage6_tpu_torch.workloads import device_engine as DE
+dist.init_process_group("gloo", init_method=init, world_size=world,
+                        rank=rank)
+cfg = cs.DISTRIBUTED
+cols, features = cs._engine_station(rank)
+out = {"backend": D.backend(), "stats": DE.device_column_stats.__wrapped__(
+    cols, "age", pad_to=cfg["rows"], device=device)}
+for mode in cs.AGG_MODES:
+    out[mode] = DE.device_logistic_fit.__wrapped__(
+        cols, features, "label", rounds=cfg["rounds"],
+        local_steps=cfg["local_steps"], batch_rows=cfg["rows"], lr=cfg["lr"],
+        agg_mode=mode, device=device)
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def _gloo_two_ranks(dev, timeout=300):
+    """Phase 13's device-engine tasks over two gloo ranks on ``dev`` (both
+    on the one card): each rank a child process with its own station.
+    Returns (each rank's results, wall seconds); a rank that fails or
+    outlives ``timeout`` fails the phase, and every child is stopped."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{tmp}/rendezvous"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _GLOO_RANK, str(r), "2", init, HERE,
+             dev.type, json.dumps(DISTRIBUTED)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+    for p, (out, err) in zip(procs, outs):
+        check(p.returncode == 0, f"a gloo rank failed: {err[-2000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs], wall
+
+
+def phase_distributed(fa, torch, dev):
+    """Phase 13 (module doc): the multi-process layer on a process group
+    of one rank on ``dev`` (NCCL on the card; gloo when rehearsed on the
+    CPU)."""
+    import socket
+
+    from vantage6_tpu_torch.core import distributed as D
+    from vantage6_tpu_torch.core.mesh import FederationMesh
+    from vantage6_tpu_torch.fed.collectives import fed_mean_scattered_tree
+    from vantage6_tpu_torch.fed.fedavg import local_sgd
+    from vantage6_tpu_torch.parallel import ring_attention_sharded, tp_mlp
+    from vantage6_tpu_torch.parallel.ring_attention import (
+        ring_attention as ring_per_rank)
+    from vantage6_tpu_torch.workloads import device_engine as DE
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    cfg, fcfg = DISTRIBUTED, FEDAVG
+    res = {}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(V6T_COORDINATOR=f"127.0.0.1:{port}", V6T_NUM_PROCESSES="1",
+               V6T_PROCESS_ID="0")
+    os.environ.update(env)
+    # the main path's counts start here
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    try:
+        multi = D.initialize(device=dev)
+        backend = D.backend()
+        want = "nccl" if dev.type == "cuda" else "gloo"
+        check(multi is False and D.is_initialized() and backend == want
+              and D.process_count() == 1 and D.process_index() == 0,
+              f"initialize: multi {multi}, backend {backend}, world "
+              f"{D.process_count()}")
+        nccl = (".".join(map(str, torch.cuda.nccl.version()))
+                if dev.type == "cuda" else None)
+        res["group"] = dict(backend=backend, nccl=nccl, world_size=1,
+                            device=str(D.rank_device()))
+        print(f"distributed: joined a {backend} group of 1 rank on "
+              f"{D.rank_device()} (NCCL {nccl})")
+
+        # -------------------------------------------- mesh and local shards
+        n_s = cfg["stations"]
+        gmesh = D.global_mesh(n_s)
+        plain = FederationMesh(n_s, device=dev)
+        check(gmesh.group is not None and gmesh.world_size == 1
+              and gmesh.station_axis_size == 1
+              and D.local_stations(gmesh) == list(range(n_s)),
+              f"global mesh layout {gmesh!r}")
+        shards = {s: np.full((3,), s, np.float32) for s in range(n_s)}
+        stacked = D.stack_local_shards(gmesh, shards)
+        check(tuple(stacked.shape) == (n_s, 3) and stacked.device == dev
+              and stacked[:, 0].tolist() == list(range(n_s)),
+              "stack_local_shards")
+
+        # ------------------------------ the scattered mean over CNN deltas
+        eng_plain = W.make_engine(plain, local_steps=fcfg["local_steps"],
+                                  batch_size=fcfg["batch"],
+                                  local_lr=fcfg["lr"])
+        eng_group = W.make_engine(gmesh, local_steps=fcfg["local_steps"],
+                                  batch_size=fcfg["batch"],
+                                  local_lr=fcfg["lr"])
+        sx, sy, counts = W.make_federated_data(
+            n_s, n_per_station=fcfg["per_station"], alpha=fcfg["alpha"],
+            seed=0, mesh=plain, noise=fcfg["noise"])
+        params0 = W.init_params(1, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        idx = eng_plain.draw_batch_indices(counts, gen)[0]
+        with torch.no_grad():
+            deltas, _ = plain.fed_map(
+                lambda x, y, i, p: local_sgd(W.weighted_ce_loss, x, y, i, p,
+                                             fcfg["lr"]),
+                sx, sy, idx, replicated_args=(params0,), batched=True)
+        n_flat = sum(v.numel() for v in _leaves(params0))
+        scattered = {}
+        for name, comm in (("f32", None), ("bf16", torch.bfloat16)):
+            one = fed_mean_scattered_tree(plain, deltas, weights=counts,
+                                          comm_dtype=comm)
+            grp = fed_mean_scattered_tree(gmesh, deltas, weights=counts,
+                                          comm_dtype=comm)
+            same = all(torch.equal(a, b) for a, b in zip(
+                _leaves(one), _leaves(grp), strict=True))
+            check(same, f"fed_mean_scattered_tree ({name} comm) through "
+                        f"{backend} differs from the one-card form")
+            times = {"one_card": [], backend: []}
+            for which in ("one_card", backend, backend, "one_card") * 2:
+                m = plain if which == "one_card" else gmesh
+                times[which].append(cuda_ms(
+                    lambda m=m, c=comm: fed_mean_scattered_tree(
+                        m, deltas, weights=counts, comm_dtype=c), 10)
+                    if dev.type == "cuda" else 0.0)
+            scattered[name] = dict(bit_identical=same, **{
+                f"{k}_ms": sorted(v)[0] for k, v in times.items()},
+                runs_ms=times)
+            print(f"fed_mean_scattered_tree [{n_s}, {n_flat}] {name} comm: "
+                  f"{backend} form == one-card form bit for bit; "
+                  f"{scattered[name][backend + '_ms']:.4f} ms vs one-card "
+                  f"{scattered[name]['one_card_ms']:.4f} ms (CUDA events, "
+                  f"best of 4 turns of 10; turns {times})")
+        res["scattered"] = dict(shape=[n_s, n_flat], **scattered)
+        del deltas
+
+        # -------------------- one eager flagship round on the group mesh
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            outs = {}
+            for which, eng in (("plain", eng_plain), (backend, eng_group)):
+                outs[which] = eng.round(params0, eng.init(params0), sx, sy,
+                                        counts, batch_idx=idx)
+            a, b = outs["plain"], outs[backend]
+            same = (all(torch.equal(x, y) for x, y in zip(
+                _leaves(a[0]), _leaves(b[0]), strict=True))
+                and torch.equal(a[2], b[2])
+                and all(torch.equal(a[3][k], b[3][k]) for k in a[3]))
+            check(same, f"the eager round on the {backend} mesh differs "
+                        "from the plain mesh's")
+            round_ms = {"plain": [], backend: []}
+            for which in ("plain", backend, backend, "plain"):
+                eng = eng_plain if which == "plain" else eng_group
+                state = [params0, eng.init(params0)]
+
+                def one_round(eng=eng, state=state):
+                    state[:] = eng.round(*state, sx, sy, counts,
+                                         batch_idx=idx)[:2]
+
+                round_ms[which].append(median_ms(torch, one_round, 3)[0])
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        res["fedavg_round"] = dict(
+            bit_identical=same, loss=float(a[2]),
+            ms={k: sorted(v)[0] for k, v in round_ms.items()},
+            runs_ms=round_ms)
+        print(f"fedavg eager round on the {backend} mesh == plain mesh bit "
+              f"for bit (loss {float(a[2]):.6f}); ms/round {backend} "
+              f"{res['fedavg_round']['ms'][backend]:.3f}, plain "
+              f"{res['fedavg_round']['ms']['plain']:.3f} (best of 2 turns, "
+              f"each the median of 3)")
+        del sx, sy, outs, a, b, eng_plain, eng_group
+
+        # --------------------------------------- the device engine's tasks
+        cols, features = _engine_station(0)
+        engine = {}
+
+        def timed(name, fn):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            ms, runs, out = median_ms(torch, fn)
+            engine[name] = dict(ms=ms, runs_ms=runs, peak_mem_gb=(
+                torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else None))
+            return out
+
+        n = cfg["rows"]
+        stats = timed("device_column_stats", lambda: DE.device_column_stats
+                      .__wrapped__(cols, "age", pad_to=n))
+        check(stats["process_index"] == 0, "process_index")
+        fits = {mode: timed(
+            f"device_logistic_fit_{mode}",
+            lambda mode=mode: DE.device_logistic_fit.__wrapped__(
+                cols, features, "label", rounds=cfg["rounds"],
+                local_steps=cfg["local_steps"], batch_rows=n, lr=cfg["lr"],
+                agg_mode=mode)) for mode in AGG_MODES}
+        errors = _engine_checks([(cols, features)], stats, fits)
+        for name, r in engine.items():
+            print(f"device engine {name}: {r['ms']:.3f} ms per call (median "
+                  f"of 3; runs {[round(v, 3) for v in r['runs_ms']]}), peak "
+                  f"{r['peak_mem_gb']} GB")
+        print(f"device engine against float64 numpy: {errors}")
+        res["device_engine"] = dict(calls=engine, errors=errors)
+        del cols
+
+        # ------------------ the per-rank ring and TP over the group (P = 1)
+        b_, t, h = FULL["batch"], FULL["seq"], FULL["n_heads"]
+        d = FULL["d_model"] // h
+        g = torch.Generator(device=dev).manual_seed(4)
+        q, k, v = (torch.randn(b_, t, h, d, generator=g, device=dev)
+                   for _ in range(3))
+        group = gmesh.station_group
+        ref = ring_attention_sharded(q, k, v, 1, causal=True)
+        out = ring_per_rank(q, k, v, group, causal=True)
+        err = (out - ref).abs().max().item()
+        lim = F32_TOL + F32_TOL * ref.abs().max().item()
+        check(err <= lim, f"per-rank ring off ring_attention_sharded: {err}")
+        ring = dict(shape=[b_, t, h, d], max_abs_err=err, tol=lim)
+        if dev.type == "cuda":
+            ring["ms"] = cuda_ms(lambda: ring_per_rank(q, k, v, group,
+                                                       causal=True), 3, 1)
+            ring["sharded_ms"] = cuda_ms(lambda: ring_attention_sharded(
+                q, k, v, 1, causal=True), 3, 1)
+        del q, k, v, ref, out
+        dm = FULL["d_model"]
+        xm = torch.randn(b_, t, dm, generator=g, device=dev)
+        w_up = 0.02 * torch.randn(dm, 4 * dm, generator=g, device=dev)
+        w_down = 0.02 * torch.randn(4 * dm, dm, generator=g, device=dev)
+
+        def dense():
+            return torch.nn.functional.gelu(xm @ w_up,
+                                            approximate="tanh") @ w_down
+
+        want = dense()
+        got = tp_mlp(xm, w_up, w_down, group=group)
+        err = (got - want).abs().max().item()
+        lim = TP_TOL + TP_TOL * want.abs().max().item()
+        check(err <= lim, f"tp_mlp over the group off the dense MLP: {err}")
+        tp = dict(shape=[b_, t, dm, 4 * dm], max_abs_err=err, tol=lim)
+        if dev.type == "cuda":
+            tp["ms"] = cuda_ms(lambda: tp_mlp(xm, w_up, w_down, group=group),
+                               3, 1)
+            tp["dense_ms"] = cuda_ms(dense, 3, 1)
+        del xm, w_up, w_down, want, got
+        res["ring"], res["tp_mlp"] = ring, tp
+        print(f"per-rank ring_attention [{b_},{t},{h},{d}] f32 causal at "
+              f"P = 1 vs ring_attention_sharded: {ring}")
+        print(f"tp_mlp over the {backend} group at P = 1 vs dense: {tp}")
+    finally:
+        D.shutdown()
+        for key in env:
+            os.environ.pop(key, None)
+    check(not D.is_initialized(), "the process group outlived phase 13")
+
+    # two gloo ranks on the one card (gloo takes CUDA tensors for the
+    # collectives these tasks use; NCCL cannot put two ranks on one card)
+    outs, wall = _gloo_two_ranks(dev)
+    stations = [_engine_station(r) for r in range(2)]
+    errors = _engine_checks(stations, outs[0]["stats"],
+                            {m: outs[0][m] for m in AGG_MODES})
+    check(all(o["backend"] == "gloo" for o in outs)
+          and [o["stats"]["process_index"] for o in outs] == [0, 1]
+          and outs[0]["stats"] == {**outs[1]["stats"], "process_index": 0}
+          and all(outs[0][m]["weights"] == outs[1][m]["weights"]
+                  and outs[0][m]["bias"] == outs[1][m]["bias"]
+                  for m in AGG_MODES),
+          "the two gloo ranks disagree")
+    res["gloo_two_ranks"] = dict(wall_s=wall, errors=errors,
+                                 stats=outs[0]["stats"])
+    print(f"device engine over two gloo ranks on {dev}: {errors}; "
+          f"{wall:.1f} s for both processes")
+    launches = dict(fa.flash_forward_cuda.variant_launches)
+    check(sum(launches.values()) == 0,
+          f"phase 13 launched a flash kernel: {launches}")
+    res["launches"] = launches
+    return res
+
+
+def _leaves(tree):
+    from vantage6_tpu_torch._tree import tree_leaves
+
+    return tree_leaves(tree)
+
 
 def main(argv: list[str]) -> int:
     import torch
@@ -3021,6 +3449,7 @@ def main(argv: list[str]) -> int:
                                   profile="--profile" in argv)
     planes = phase_planes(fa, torch, dev)
     workloads = phase_workloads(fa, torch, dev, profile="--profile" in argv)
+    distributed = phase_distributed(fa, torch, dev)
     print(f"fedavg-cnn: {fedavg['fused_ms_per_round']:.3f} ms/round fused "
           f"({fedavg['rounds_per_s']:.1f} rounds/s), "
           f"{fedavg['eager_ms_per_round']:.3f} ms/round eager, "
@@ -3077,6 +3506,17 @@ def main(argv: list[str]) -> int:
         if name != "profile":
             print(f"workload {name}: {r['ms']:.3f} ms per call, peak "
                   f"{r['peak_mem_gb']:.3f} GB on {card}")
+    ds, dr = distributed["scattered"], distributed["fedavg_round"]
+    print(f"distributed ({distributed['group']['backend']}, 1 rank): "
+          f"scattered mean f32 {ds['f32']['nccl_ms']:.4f} ms (one-card "
+          f"{ds['f32']['one_card_ms']:.4f}), bf16 comm "
+          f"{ds['bf16']['nccl_ms']:.4f} ms (one-card "
+          f"{ds['bf16']['one_card_ms']:.4f}); eager round "
+          f"{dr['ms']['nccl']:.3f} ms (plain {dr['ms']['plain']:.3f}) on "
+          f"{card}")
+    for name, r in distributed["device_engine"]["calls"].items():
+        print(f"distributed {name}: {r['ms']:.3f} ms per call, peak "
+              f"{r['peak_mem_gb']:.3f} GB on {card}")
 
     # each kernel at the shape and dtype it serves: the tensor-core kernels
     # at the main path's head dim 128, the CUDA-core one in bf16 at head
@@ -3109,7 +3549,8 @@ def main(argv: list[str]) -> int:
                   ring=ring, parallel_ops=parallel_ops, wire=wire,
                   fedavg=fedavg, compression=compression, analysis=analysis,
                   task_plane=task_plane, planes=planes,
-                  workloads=workloads, kernels=kernels,
+                  workloads=workloads, distributed=distributed,
+                  kernels=kernels,
                   times=times, profile=prof,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(HERE, "chiprun_out")
@@ -3121,7 +3562,7 @@ def main(argv: list[str]) -> int:
                       "fedavg": fedavg,
                       "compression": compression, "analysis": analysis,
                       "task_plane": task_plane, "planes": planes,
-                      "workloads": workloads}))
+                      "workloads": workloads, "distributed": distributed}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from vantage6_tpu_torch._tree import tree_leaves
+from vantage6_tpu_torch.core.mesh import FederationMesh
 from vantage6_tpu_torch.fed import fedavg as tfedavg
 from vantage6_tpu_torch.models.cnn import CNN
 from vantage6_tpu_torch.utils.datasets import synthetic_image_classes
@@ -178,13 +179,18 @@ def test_config_yaml_file_round_trip(tmp_path):
 def test_one_card_refuses_devices_per_station():
     raw = dict(RAW, federation={"devices_per_station": 2})
     assert JAX.config.FederationConfig.from_dict(raw).devices_per_station == 2
-    with pytest.raises(TORCH.config.ConfigurationError, match="9.4"):
-        TORCH.config.FederationConfig.from_dict(raw)
+    # as in the reference, the config accepts it and the mesh checks it
+    cfg = TORCH.config.FederationConfig.from_dict(raw)
+    assert cfg.devices_per_station == 2
+    with pytest.raises(NotImplementedError, match="item 12.5"):
+        TORCH.federation.Federation(cfg, device="cpu")
+    with pytest.raises(ValueError, match="needs a process group"):
+        FederationMesh(2, device="cpu", devices_per_station=2)
 
 
 @pytest.mark.parametrize("fed_raw, item", [
     ({"compression": {"topk_ratio": 0.1, "int8": True}}, r"9\.2 \(1\)"),
-    ({"autopilot": {"enabled": True}}, r"9\.2 \(4\)"),
+    ({"autopilot": {"enabled": True}}, r"11\.2"),
 ])
 def test_unported_planes_raise_rather_than_being_ignored(fed_raw, item):
     """A plane the port lacks raises; compression (item 9.2 (1)) is

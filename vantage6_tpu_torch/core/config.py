@@ -9,8 +9,12 @@ slices of one pod rather than daemons on separate machines.
 
 The port's copy of ``vantage6_tpu/core/config.py``. PyYAML is imported
 only by ``load``/``save``: ``from_dict``/``to_dict``/``validate`` need
-nothing beyond the standard library. One card: ``devices_per_station``
-other than 1 is refused.
+nothing beyond the standard library. As in the reference,
+``devices_per_station`` is checked where a mesh is built: a
+``FederationMesh`` over a process group (``core.distributed``) takes a
+station spanning that many ranks, with its own subgroup, and refuses a
+value its world size cannot hold; a ``Federation`` runs every station in
+one process and refuses anything but 1.
 
 Example::
 
@@ -145,12 +149,6 @@ class FederationConfig:
     def validate(self) -> None:
         if not self.stations:
             raise ConfigurationError("federation needs at least one station")
-        if self.devices_per_station != 1:
-            raise ConfigurationError(
-                "devices_per_station must be 1: the port runs a federation "
-                "on one card (stations spanning several cards are "
-                "ROADMAP.md item 9.4)"
-            )
         if self.executor_workers is not None and self.executor_workers < 0:
             raise ConfigurationError(
                 "executor_workers must be >= 0 (0 = synchronous dispatch)"

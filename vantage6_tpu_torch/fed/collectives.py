@@ -1,21 +1,33 @@
 """Federated aggregation primitives over the station axis.
 
 Counterpart of ``vantage6_tpu/fed/collectives.py``: the masked, weighted
-reductions, the flat-pack seam and learning-plane stats, the one-card form
-of the scattered reductions, and the secure sums (pairwise int32 masks
-that cancel exactly).
+reductions, the flat-pack seam and learning-plane stats, the scattered
+reductions (reduce-scatter and all-gather), and the secure sums (pairwise
+int32 masks that cancel exactly).
 
 Each primitive consumes *stacked* per-station pytrees (leading axis S) and
 reduces them on the device. All primitives take an optional participation
 ``mask`` ([S] bool/float): a dropped station contributes weight 0.
+
+Across ranks (a ``FederationMesh`` over a process group, passed as
+``mesh=``) the stacked values are the rank's local block ``[S_local, ...]``
+while weights and masks stay global ``[S]`` and replicated, as in the JAX
+package. Nothing reduces across ranks implicitly: each primitive takes the
+local stations' weights, reduces its block, and combines the ranks with one
+explicit collective over ``mesh.station_group``. The collective hands every
+rank the same bytes and whatever follows it is the same arithmetic on every
+rank, so replicated results are bit-identical across ranks; only the
+summation order differs from the one-process form.
 """
 from __future__ import annotations
 
 import math
 import operator
+import warnings
 from typing import TYPE_CHECKING, Any
 
 import torch
+import torch.distributed as dist
 
 from vantage6_tpu_torch._tree import tree_leaves, tree_map, tree_unflatten
 
@@ -72,8 +84,57 @@ def _weighted_leaf_sum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.sum(safe_x * ww, dim=0)
 
 
-def fed_sum(stacked: Pytree, mask: Any | None = None) -> Pytree:
-    """Sum each leaf over the station axis."""
+def _multi_rank(mesh: "FederationMesh | None") -> bool:
+    return mesh is not None and mesh.group is not None
+
+
+def _local_rows(mesh: "FederationMesh", w: torch.Tensor) -> torch.Tensor:
+    """The local stations' entries of a global ``[S]`` vector."""
+    return w[mesh.local_stations.start:mesh.local_stations.stop]
+
+
+def _check_local(mesh: "FederationMesh", n: int) -> None:
+    if n != len(mesh.local_stations):
+        raise ValueError(
+            f"stacked has {n} stations but rank {mesh.rank} hosts "
+            f"{len(mesh.local_stations)} (stations "
+            f"{list(mesh.local_stations)}): across ranks the stacked values "
+            "are the local block"
+        )
+
+
+def _all_reduce(x: torch.Tensor, mesh: "FederationMesh") -> torch.Tensor:
+    """Sum of ``x`` over the station group (a fresh tensor)."""
+    out = x.clone()
+    dist.all_reduce(out, group=mesh.station_group)
+    return out
+
+
+# reduce_scatter_tensor and all_gather_into_tensor are the names every
+# supported torch has; newer ones deprecate them with a FutureWarning
+def _reduce_scatter(out: torch.Tensor, x: torch.Tensor, group: Any) -> None:
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, x, group=group)
+
+
+def _all_gather(out: torch.Tensor, x: torch.Tensor, group: Any) -> None:
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, x, group=group)
+
+
+def fed_sum(stacked: Pytree, mask: Any | None = None, *,
+            mesh: "FederationMesh | None" = None) -> Pytree:
+    """Sum each leaf over the station axis. Across ranks (``mesh`` over a
+    process group) the local block's sum, all-reduced."""
+    if _multi_rank(mesh):
+        _check_local(mesh, _station_count(stacked))
+        if mask is not None:
+            mask = _local_rows(mesh, _as_f32(
+                mask, tree_leaves(stacked)[0].device))
+        return tree_map(lambda x: _all_reduce(x, mesh),
+                        fed_sum(stacked, mask=mask))
     if mask is None:
         return tree_map(lambda x: torch.sum(x, dim=0), stacked)
     return tree_map(
@@ -85,6 +146,8 @@ def fed_mean(
     stacked: Pytree,
     weights: Any | None = None,
     mask: Any | None = None,
+    *,
+    mesh: "FederationMesh | None" = None,
 ) -> Pytree:
     """Weighted mean over stations — the FedAvg aggregator.
 
@@ -92,13 +155,25 @@ def fed_mean(
     stations. Division is by the *effective* total weight so dropped
     stations don't bias the mean; when every station is dropped the result
     is zeros, not NaN. Accumulation and division happen in each leaf's own
-    dtype (see ``_norm_weights``).
+    dtype (see ``_norm_weights``). Across ranks (``mesh`` over a process
+    group) each rank sums its local block with its local stations'
+    weights, the sums are all-reduced, and the total weight comes from the
+    global ``[S]`` weights every rank holds.
     """
     n = _station_count(stacked)
     device = tree_leaves(stacked)[0].device
+    if _multi_rank(mesh):
+        _check_local(mesh, n)
+        n = mesh.n_stations
     w = _norm_weights(n, weights, mask, device)
     total = torch.sum(w)
     denom = torch.where(total > 0, total, torch.ones_like(total))
+    if _multi_rank(mesh):
+        w_local = _local_rows(mesh, w)
+        return tree_map(
+            lambda x: _all_reduce(_weighted_leaf_sum(x, w_local), mesh)
+            / denom.to(x.dtype), stacked
+        )
     return tree_map(
         lambda x: _weighted_leaf_sum(x, w) / denom.to(x.dtype), stacked
     )
@@ -182,9 +257,14 @@ def station_update_stats(
     weights: Any | None = None,
     mask: Any | None = None,
     ef: torch.Tensor | None = None,
+    *,
+    mesh: "FederationMesh | None" = None,
 ) -> dict[str, torch.Tensor]:
     """Learning-plane statistics of one round's per-station updates, one
-    f32 pass over the flat-packed ``[S, N]`` rows:
+    f32 pass over the flat-packed ``[S, N]`` rows (across ranks: the local
+    ``[S_local, N]`` block, the pooled delta all-reduced and the
+    per-station figures all-gathered, so every rank returns the global
+    ``[S]`` stats):
 
     - ``station_norm`` [S]: each station's update L2 norm;
     - ``station_cos`` [S]: cosine of each station's delta to the pooled
@@ -200,15 +280,23 @@ def station_update_stats(
     dropped -> zeros). Masked-out stations keep their own norm and cosine.
     """
     x = flat.to(torch.float32)
-    s = x.shape[0]
+    multi = _multi_rank(mesh)
+    s = mesh.n_stations if multi else x.shape[0]
     w = _norm_weights(s, weights, mask, x.device)
+    w_local = w
+    if multi:
+        _check_local(mesh, x.shape[0])
+        w_local = _local_rows(mesh, w)
     norms = torch.sqrt(torch.sum(x * x, dim=1))
     total = torch.sum(w)
     denom = torch.where(total > 0, total, torch.ones_like(total))
-    ww = w.reshape(-1, 1)
+    ww = w_local.reshape(-1, 1)
     safe = torch.where(ww != 0, x, torch.zeros((), dtype=torch.float32,
                                                device=x.device))
-    pooled = torch.sum(safe * ww, dim=0) / denom
+    pooled = torch.sum(safe * ww, dim=0)
+    if multi:
+        pooled = _all_reduce(pooled, mesh)
+    pooled = pooled / denom
     update_norm = torch.sqrt(torch.sum(pooled * pooled))
     dots = x @ pooled
     cos = dots / torch.clamp_min(norms * update_norm, 1e-12)
@@ -221,6 +309,10 @@ def station_update_stats(
     if ef is not None:
         e = ef.to(torch.float32)
         out["station_ef_norm"] = torch.sqrt(torch.sum(e * e, dim=1))
+    if multi:  # every slot's [S_local] block, in station order
+        for name in ("station_norm", "station_cos", "station_ef_norm"):
+            if name in out:
+                out[name] = all_gather_stations(mesh, out[name])
     return out
 
 
@@ -244,12 +336,14 @@ def per_round_masks(mask: Any, n_rounds: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# Scattered aggregation on one card. The JAX package reduce-scatters the
-# flat weighted sum over its D station slots (ZeRO-1 server update); on one
-# card D = 1, so the scatter and the all-gather are the identity and only
-# the arithmetic stays: f32 accumulation whatever the leaf dtype, and the
-# ``comm_dtype`` cast of what would cross the wire. The multi-GPU form
-# (NCCL) is ROADMAP.md queue 1 item 9.
+# Scattered aggregation (ZeRO-1 server update). The weighted sum is
+# accumulated in f32 over the local station block, flattened, padded to a
+# multiple of D (the station axis size), cast to ``comm_dtype`` and
+# reduce-scattered over the station group: slot i keeps elements
+# ``[i*N_pad/D, (i+1)*N_pad/D)`` of the global sum. ``all_gather_stations``
+# re-replicates. On one card (no process group) D = 1 and the scatter and
+# the gather are the identity; only the arithmetic stays: the f32
+# accumulation and one ``comm_dtype`` rounding of the summed vector.
 # --------------------------------------------------------------------------
 
 
@@ -260,31 +354,50 @@ def fed_sum_scattered(
     mask: Any | None = None,
     comm_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """Weighted sum over stations as ONE flat f32 vector of
-    ``padded_flat_size(N, D)`` elements (D = the mesh's station axis, 1 on
-    one card). Zero-weight stations are excluded with ``where``; the sum is
-    f32; ``comm_dtype`` rounds the summed vector once, as the wire would."""
+    """Weighted sum over stations, reduce-scattered over the station axis:
+    this slot's shard, ``padded_flat_size(N, D) / D`` f32 elements, of ONE
+    flat vector (N = per-station element count, D =
+    ``mesh.station_axis_size``; on one card the whole vector).
+
+    Zero-weight stations are excluded with ``where``; local accumulation is
+    f32. ``comm_dtype`` narrows what crosses the wire: on one card the
+    summed vector is rounded to it once; across D > 1 slots each slot's
+    partial sum is rounded to it and the D partials combine IN
+    ``comm_dtype`` inside the reduce-scatter (bf16 halves the bytes and
+    pays up to D - 1 more bf16 roundings of the running sum, as the JAX
+    package warns), so the two forms differ by that rounding."""
     n = _station_count(stacked)
-    if n != mesh.n_stations:
-        raise ValueError(
-            f"stacked has {n} stations but mesh federates {mesh.n_stations}"
-        )
     device = tree_leaves(stacked)[0].device
-    w = _norm_weights(n, weights, mask, device)
+    if mesh.group is None:
+        if n != mesh.n_stations:
+            raise ValueError(
+                f"stacked has {n} stations but mesh federates "
+                f"{mesh.n_stations}"
+            )
+        w_local = _norm_weights(n, weights, mask, device)
+    else:
+        _check_local(mesh, n)
+        w_local = _local_rows(
+            mesh, _norm_weights(mesh.n_stations, weights, mask, device))
 
     def leaf_sum(x: torch.Tensor) -> torch.Tensor:
-        ww = w.reshape((-1,) + (1,) * (x.ndim - 1))
+        ww = w_local.reshape((-1,) + (1,) * (x.ndim - 1))
         xf = x.to(torch.float32)
         safe = torch.where(ww != 0, xf, torch.zeros((), dtype=torch.float32,
                                                     device=device))
         return torch.sum(safe * ww, dim=0)
 
     flat = flatten_tree([leaf_sum(x) for x in tree_leaves(stacked)])
-    pad = padded_flat_size(flat.numel(), mesh.station_axis_size) - flat.numel()
+    d = mesh.station_axis_size
+    pad = padded_flat_size(flat.numel(), d) - flat.numel()
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
     if comm_dtype is not None:
         flat = flat.to(comm_dtype)
+    if mesh.group is not None:
+        shard = flat.new_empty(flat.numel() // d)
+        _reduce_scatter(shard, flat, mesh.station_group)
+        flat = shard
     return flat.to(torch.float32)
 
 
@@ -295,11 +408,15 @@ def fed_mean_scattered(
     mask: Any | None = None,
     comm_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """``fed_mean`` as one flat f32 vector (see ``fed_sum_scattered``); the
-    division by the effective total weight comes after the cast, with
+    """``fed_mean``, reduce-scattered: this slot's f32 shard of the flat
+    weighted mean (see ``fed_sum_scattered`` for the layout and the
+    ``comm_dtype`` contract). The division by the effective total weight
+    (of the global ``[S]`` weights) comes after the scatter, with
     ``fed_mean``'s all-dropped guard."""
     n = _station_count(stacked)
     device = tree_leaves(stacked)[0].device
+    if mesh.group is not None:
+        n = mesh.n_stations
     w = _norm_weights(n, weights, mask, device)
     total = torch.sum(w)
     denom = torch.where(total > 0, total, torch.ones_like(total))
@@ -310,10 +427,14 @@ def fed_mean_scattered(
 
 def all_gather_stations(mesh: "FederationMesh",
                         flat: torch.Tensor) -> torch.Tensor:
-    """Re-replicate a station-axis-sharded flat vector: on one card every
-    shard is already the whole vector."""
-    del mesh
-    return flat
+    """Re-replicate a station-axis-sharded flat vector: every slot's shard,
+    gathered in slot order over the station group (on one card every
+    shard is already the whole vector)."""
+    if mesh.group is None:
+        return flat
+    out = flat.new_empty(flat.numel() * mesh.station_axis_size)
+    _all_gather(out, flat.contiguous(), mesh.station_group)
+    return out
 
 
 def fed_mean_scattered_tree(
@@ -324,9 +445,9 @@ def fed_mean_scattered_tree(
     comm_dtype: torch.dtype | None = None,
 ) -> Pytree:
     """Scattered mean -> all-gather -> the original pytree shape: f32
-    accumulation, ``comm_dtype`` (e.g. ``torch.bfloat16``) rounding the
-    summed vector as the wire would; result leaves are cast back to each
-    leaf's dtype."""
+    accumulation, ``comm_dtype`` (e.g. ``torch.bfloat16``) on the wire (see
+    ``fed_sum_scattered``); result leaves are cast back to each leaf's
+    dtype."""
     flat = all_gather_stations(
         mesh,
         fed_mean_scattered(mesh, stacked, weights=weights, mask=mask,

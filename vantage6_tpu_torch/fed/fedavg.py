@@ -1,4 +1,4 @@
-"""FedAvg engine on one GPU: a federated round and its fused K-round form.
+"""FedAvg engine: a federated round and its fused K-round form.
 
 Counterpart of ``vantage6_tpu/fed/fedavg.py``. A round runs each station's
 ``local_steps`` of minibatch SGD from the global params (station-batched
@@ -42,6 +42,16 @@ every round's stats into a ``runtime.learning.RoundHistory``.
 Observability never fails a round: a recording error is logged at debug
 level; the stats' pull to the host is the round's own, so a device error
 there propagates.
+
+On a mesh over a process group (``core.distributed``) the eager ``round``
+runs across ranks: each rank trains its local stations (``[S_local, ...]``
+data, batch indices ``[S_local, local_steps, batch]``), and the mean delta,
+the round loss and the learning stats are combined with explicit
+collectives (``fed.collectives`` with ``mesh=``), in both the plain and the
+``shard_server_update`` form, where each slot steps its shard of the flat
+params and server state. Weights (``counts``, ``mask``) stay global ``[S]``.
+The fused ``run_rounds`` (a CUDA graph) and compression stay one-process:
+on such a mesh they raise (ROADMAP.md queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -103,8 +113,9 @@ class FedAvgSpec:
     local_lr: float = 0.1
     server_optimizer: Any = None  # default sgd(1.0)
     # ZeRO-1 server update: the pseudo-gradient and the server state are
-    # flat f32 vectors. On one card the scatter and gather are the identity
-    # (fed.collectives), so only the flat layout and f32 arithmetic remain.
+    # flat f32 vectors, each slot holding its 1/D shard between a
+    # reduce-scatter and an all-gather (fed.collectives); on one card D = 1
+    # and only the flat layout and f32 arithmetic remain.
     shard_server_update: bool = False
     # dtype the flat delta sum is rounded to, as it would cross the wire; with
     # a compressor, also the cast before quantizing (cast, then quantize)
@@ -203,6 +214,11 @@ class FedAvg:
         # an identity compressor is a no-op: skip the flat-pack round trip
         self._compressing = (spec.compressor is not None
                              and not spec.compressor.identity)
+        if self._compressing and mesh.group is not None:
+            raise NotImplementedError(
+                "compression across ranks is not ported yet: ROADMAP.md "
+                "queue 1, item 12.2"
+            )
         self.server_opt = spec.server_optimizer or sgd(1.0)
         # captured rounds, keyed on their inputs' structure, shapes, dtypes;
         # at most FUSED_CACHE_SIZE, the oldest evicted first; each capture
@@ -271,20 +287,21 @@ class FedAvg:
         if self.spec.learning_stats:
             if flat is None:
                 flat = flatten_stacked(deltas)
-            stats = station_update_stats(flat, weights=weights, ef=ef)
+            stats = station_update_stats(flat, weights=weights, ef=ef,
+                                         mesh=self.mesh)
         if self.spec.shard_server_update:
             params, server_state = self._sharded_server_update(
                 params, server_state, deltas, weights
             )
         else:
-            mean_delta = fed_mean(deltas, weights=weights)
+            mean_delta = fed_mean(deltas, weights=weights, mesh=self.mesh)
             # server update on the pseudo-gradient (negative mean delta)
             pseudo_grad = tree_map(torch.neg, mean_delta)
             updates, server_state = self.server_opt.update(
                 pseudo_grad, server_state, params
             )
             params = apply_updates(params, updates)
-        round_loss = fed_mean(losses, weights=weights)
+        round_loss = fed_mean(losses, weights=weights, mesh=self.mesh)
         new_state = ({"server": server_state, "ef": ef} if self._compressing
                      else server_state)
         return params, new_state, round_loss, stats
@@ -313,17 +330,26 @@ class FedAvg:
         self, params: Pytree, opt_state: Any, deltas: Pytree,
         weights: torch.Tensor,
     ) -> tuple[Pytree, Any]:
-        """Reduce-scatter -> shard-local update -> all-gather, on one card:
-        the server optimizer steps the flat padded f32 param vector."""
+        """Reduce-scatter -> shard-local update -> all-gather: the server
+        optimizer steps this slot's shard of the flat padded f32 param
+        vector (the whole vector on one card)."""
         mesh = self.mesh
         grad = -fed_mean_scattered(mesh, deltas, weights=weights,
                                    comm_dtype=self.spec.comm_dtype)
+        shard = self._param_shard(params)
+        updates, opt_state = self.server_opt.update(grad, opt_state, shard)
+        new_flat = all_gather_stations(mesh, apply_updates(shard, updates))
+        return unflatten_like(params, new_flat), opt_state
+
+    def _param_shard(self, params: Pytree) -> torch.Tensor:
+        """This slot's shard of the flat f32 params, zero-padded to a
+        multiple of the station axis size."""
+        mesh = self.mesh
         flat = flatten_tree(params)
         n_pad = padded_flat_size(flat.numel(), mesh.station_axis_size)
         flat = F.pad(flat, (0, n_pad - flat.numel()))
-        updates, opt_state = self.server_opt.update(grad, opt_state, flat)
-        new_flat = all_gather_stations(mesh, apply_updates(flat, updates))
-        return unflatten_like(params, new_flat), opt_state
+        chunk = n_pad // mesh.station_axis_size
+        return flat[mesh.slot * chunk:(mesh.slot + 1) * chunk]
 
     # -------------------------------------------------------------- sampling
     def _generator(self, key: Key) -> torch.Generator:
@@ -361,13 +387,18 @@ class FedAvg:
     def _draws(self, counts: torch.Tensor, params: Pytree, key: Key | None,
                batch_idx: Any | None, noise: Any | None, n_rounds: int):
         """A function of the round ``k`` that returns its batch indices
-        ``[S, local_steps, batch]`` and rounding noise ``[S, n_pad]`` (None
-        without int8): the given ones (one round's, for every round, or row
-        ``k`` of each round's), else drawn with ``key`` when called, its
-        indices first. Called for k = 0, 1, ... in turn, it holds one
-        round's draws at a time."""
+        ``[S, local_steps, batch]`` (``S_local`` across ranks) and rounding
+        noise ``[S, n_pad]`` (None without int8): the given ones (one
+        round's, for every round, or row ``k`` of each round's), else drawn
+        with ``key`` when called, its indices first. Called for k = 0, 1,
+        ... in turn, it holds one round's draws at a time. Across ranks
+        every rank draws the global ``[S, ...]`` indices from the key and
+        keeps its own stations' rows, so the round is the one-process
+        round whatever the layout."""
         spec = self.spec
-        idx_shape = (n_rounds, self.mesh.n_stations, spec.local_steps,
+        stations = self.mesh.local_stations
+        rows = slice(stations.start, stations.stop)
+        idx_shape = (n_rounds, len(stations), spec.local_steps,
                      spec.batch_size)
         u_shape = self._noise_shape(params)
         draw_idx = batch_idx is None
@@ -384,7 +415,7 @@ class FedAvg:
                          torch.float32))
 
         def draw(k: int):
-            k_idx = self._draw_idx(counts, gen) if draw_idx else idx[k]
+            k_idx = self._draw_idx(counts, gen)[rows] if draw_idx else idx[k]
             if u_shape is None:
                 return k_idx, None
             return k_idx, (draw_noise(gen, u_shape, self.device) if draw_u
@@ -410,15 +441,14 @@ class FedAvg:
     def init(self, params: Pytree) -> Any:
         """Server-optimizer state for ``params``. With
         ``shard_server_update`` it is built over the flat padded f32 param
-        vector. A step count lives on the device (a 0-d int32 tensor) so a
-        captured round reads it on every replay. With a compressor the
-        state is ``{"server": <optimizer state>, "ef": [S, N]}``, each
-        station's error-feedback accumulator starting at zero."""
+        vector (this slot's shard of it across ranks). A step count lives
+        on the device (a 0-d int32 tensor) so a captured round reads it on
+        every replay. With a compressor the state is ``{"server":
+        <optimizer state>, "ef": [S, N]}``, each station's error-feedback
+        accumulator starting at zero."""
         params = self._device_params(params)
         if self.spec.shard_server_update:
-            flat = flatten_tree(params)
-            n_pad = padded_flat_size(flat.numel(), self.mesh.station_axis_size)
-            state = self.server_opt.init(F.pad(flat, (0, n_pad - flat.numel())))
+            state = self.server_opt.init(self._param_shard(params))
         else:
             state = self.server_opt.init(params)
         if self._compressing:
@@ -511,6 +541,15 @@ class FedAvg:
             record_round_telemetry(
                 self.spec.compressor, flat_size(params),
                 self.mesh.n_stations, rounds=n_rounds,
+            )
+
+    def _one_process(self, name: str) -> None:
+        if self.mesh.group is not None:
+            raise NotImplementedError(
+                f"{name} (the fused round, a CUDA graph) across ranks is "
+                "not ported yet: a collective inside a captured graph is "
+                "ROADMAP.md queue 1, item 12.1; run eager rounds (round) "
+                "on a mesh over a process group"
             )
 
     def _record_fused(self, n_rounds: int) -> None:
@@ -624,6 +663,7 @@ class FedAvg:
         no effect: the inputs are copied into the graph's own buffers and
         never consumed, and the round is replayed, not unrolled."""
         del donate, unroll
+        self._one_process("run_rounds")
         self._record_fused(n_rounds)
         out = self._run(params, stacked_x, stacked_y, counts, key, mask,
                         opt_state, batch_idx, noise, n_rounds=n_rounds)
@@ -665,6 +705,7 @@ class FedAvg:
         ``accept_masks`` is ``[n_rounds, S]`` or ``[S]``. Returns (params,
         opt_state, staleness[S], losses[n], stats)."""
         del donate
+        self._one_process("run_rounds_async")
         spec.validate()
         self._record_fused(n_rounds)
         out = self._run_async(params, stacked_x, stacked_y, counts, key,

@@ -83,7 +83,14 @@ class Federation:
         if (config.autopilot or {}).get("enabled"):
             raise NotImplementedError(
                 "the autopilot is not ported yet: ROADMAP.md queue 1, "
-                "item 9.2 (4)"
+                "item 11.2"
+            )
+        if config.devices_per_station != 1:
+            raise NotImplementedError(
+                "a Federation runs every station in this process; stations "
+                "spanning ranks (devices_per_station > 1) run through "
+                "workloads/device_engine.py, and a Federation across ranks "
+                "waits for the node: ROADMAP.md queue 1, item 12.5"
             )
         self.config = config
         # optional MetricsLogger: host runs emit queued→started→finished
