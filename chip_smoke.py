@@ -183,6 +183,47 @@ Phases, each of which raises (exit code 1) on failure:
    against the dense MLP at phase 9's shapes, errors and ms. The group is
    destroyed at the end; no flash kernel may launch.
 
+14. the ops plane around FedAvg, after a line saying whether ``requests``
+   and ``cryptography`` import here. (a) The reference benchmark's
+   straggler arm (``bench.py:2692-2770``): 8 host stations of 128 rows at
+   8 executor workers, clean sync rounds, sync rounds with a ``FAULTS``
+   delay on station 0 of ``min(1, max(0.2, 9 x the clean round))`` s, and
+   ``run_buffered`` (quorum 7, over-select 1); rounds/s the median of 3
+   timed runs of 6 rounds, each arm after one untimed round, with the
+   collector off; its gates: async at least 80% of clean, sync with the
+   straggler at most half, the aggregate within 2%. Then a Federation
+   with ``autopilot: {enabled: true}``: ``straggler_station`` names
+   station 0, whose selection weight drops to 0.25 and returns to 1.0
+   after clean rounds clear the alert. (b) The reference's closed loop
+   (``bench.py:2771-2850``) on the card: 8 stations x 32 rows x 16
+   features of linear least squares, station 5 label-flipped by
+   ``FAULTS.poison_labels`` on the card, 6 fused rounds poisoned and
+   clean, the history recorded while ``WATCHDOG`` runs at 0.4 s with an
+   ``Autopilot(ArrayActuator(8))``: station 5 masked within 1.3 s, the
+   masked run recovers (its final loss under the poisoned one and at most
+   max(1.5 x clean, clean + 0.05)), the mask reverts after
+   ``LEARNING.clear()``; a flight dump taken while masked holds the
+   ``alert`` record, one taken after holds the ``autopilot_action`` and
+   ``autopilot_revert`` notes. (c) The same loop on phase 6's flagship
+   (cuDNN deterministic, learning stats on): the station with the most
+   rows has its labels permuted (``CONTRARIAN_PERM``); the alert names it
+   alone, ``ArrayActuator(32)`` masks it, a fused run under the
+   actuator's numpy mask is more accurate on phase 6's eval set than the
+   poisoned run and equal bit for bit to a run with the same mask by
+   hand, no new graph is captured, and the mask reverts; detection
+   latency, fused ms/round poisoned and masked, peak memory. (e) A
+   phase-10-shaped Federation pushing to an in-process recorder
+   (``attach_fleet_push``, interval 0) through ``central_fedavg`` for 3
+   rounds: one push per round boundary, each decoding to its
+   ``build_snapshot``, each carrying ``v6t_device_*``; ms per push. (d)
+   With that Federation open, one ``WATCHDOG.evaluate()`` over the
+   learning, device-plane and Federation feeds: no feed error; its ms and
+   the health verdict. (f) Where ``cryptography`` imports: a run's
+   ``identity()`` signs an advert its ``org_identities()`` verify (and
+   another station's key refuses), a 1 MB payload round-trips as an
+   RSA-sealed v2 frame; keygen, encrypt and decrypt ms. No flash kernel
+   may launch.
+
 ``--profile`` traces one more round of each run of phases 4 and 9
 (torch.profiler) and reports device time by kernel group and under the
 ``attention_fwd``/``attention_bwd`` profiler ranges, one fused round of
@@ -3366,6 +3407,700 @@ def phase_distributed(fa, torch, dev):
     return res
 
 
+# ------------------------------------------------------------------ phase 14
+OPS = dict(
+    # (a) the reference benchmark's straggler arm (bench.py:2692-2770)
+    stations=8, rows=128, rounds=6, quorum=7, over_select=1,
+    trials=3,        # rounds/s: the median of 3 timed runs of 6 rounds
+    clean_rounds=8,  # clean rounds after the fault, to clear the alert
+    work_s=0.005,    # the autopilot arm's local work a station
+    # (b) its closed loop (bench.py:2771-2850)
+    loop_stations=8, loop_rows=32, loop_features=16, loop_seeded=5,
+    loop_rounds=6, loop_local_steps=2, loop_batch=16, loop_lr=0.02,
+    loop_key=3, wd_interval=0.4,
+    # (c) the closed loop on phase 6's flagship; (e) the fleet push
+    flagship_rounds=5, fleet_rounds=3,
+    # (f) RSA identities
+    payload_bytes=1 << 20, crypto_turns=3,
+)
+AP_RESILIENCE_PCT = 80.0  # the reference's bar (bench.py:194)
+AGG_PARITY = 0.02         # the async aggregate within 2% of the clean one
+# (c): the contrarian station's labels go through this fixed permutation
+CONTRARIAN_PERM = (5, 6, 7, 8, 9, 0, 1, 2, 3, 4)
+
+
+def _wait_for(pred, timeout: float, step: float = 0.01) -> float:
+    """Seconds until ``pred()`` held (or ``timeout`` passed)."""
+    t0 = time.monotonic()
+    while not pred() and time.monotonic() - t0 < timeout:
+        time.sleep(step)
+    return time.monotonic() - t0
+
+
+def optional_packages() -> dict:
+    """Whether ``requests`` and ``cryptography`` import here."""
+    import importlib
+
+    found = {}
+    for name in ("requests", "cryptography"):
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    return found
+
+
+def _ops_straggler(torch, dev):
+    """(a) The reference's straggler arm on the port's Federation: clean
+    sync rounds, sync rounds with a ``FAULTS`` delay on station 0, and
+    ``run_buffered`` (quorum 7, over-select 1) outrunning it; then a
+    Federation with ``autopilot: {enabled: true}`` whose watchdog alert
+    shrinks station 0's selection weight and restores it on clear."""
+    import gc
+
+    from vantage6_tpu_torch.algorithm.decorators import data
+    from vantage6_tpu_torch.common.enums import TaskStatus
+    from vantage6_tpu_torch.common.faults import FAULTS
+    from vantage6_tpu_torch.core.config import FederationConfig
+    from vantage6_tpu_torch.fed.fedavg import AsyncRoundSpec
+    from vantage6_tpu_torch.runtime.federation import (
+        Federation,
+        federation_from_datasets,
+    )
+    from vantage6_tpu_torch.runtime.watchdog import WATCHDOG
+
+    c = OPS
+    n_s, rounds = c["stations"], c["rounds"]
+    failed = []
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    @data(1)
+    def local_mean(df):
+        return {"sum": float(df["x"].sum()), "n": int(len(df["x"]))}
+
+    rng = np.random.default_rng(5)
+    frames = [{"x": rng.normal(10.0, 1.0, c["rows"])} for _ in range(n_s)]
+    fed = federation_from_datasets(
+        frames, {"bench-ap": {"local_mean": local_mean}},
+        executor_workers=n_s, device=dev)
+
+    def mean_of(runs):
+        rs = [r.result for r in runs]
+        return sum(r["sum"] for r in rs) / max(sum(r["n"] for r in rs), 1)
+
+    def sync_round():
+        t = fed.create_task("bench-ap", {"method": "local_mean"})
+        return mean_of([r for r in t.runs
+                        if r.status == TaskStatus.COMPLETED])
+
+    def timed(one_round):
+        """rounds/s of each arm: the median of ``trials`` timed runs of
+        ``rounds`` rounds, after one untimed round; the values of all."""
+        one_round()
+        runs, vals = [], []
+        for _ in range(c["trials"]):
+            t0 = time.perf_counter()
+            vals += [one_round() for _ in range(rounds)]
+            runs.append(rounds / (time.perf_counter() - t0))
+        return float(np.median(runs)), runs, vals
+
+    FAULTS.clear()
+    # the arms take milliseconds: time them with the collector off, as
+    # timeit does (a full collection of this process's heap takes longer)
+    gc.collect()
+    gc.disable()
+    rps_clean, clean_runs, vals_clean = timed(sync_round)
+    # the "10x-slow station": ~9 extra clean-round times, clamped
+    delay_s = min(1.0, max(0.2, 9.0 / rps_clean))
+    FAULTS.configure(f"delay:station=0,seconds={delay_s:.3f}")
+    n_slow = max(2, rounds // 3)
+    t0 = time.perf_counter()
+    for _ in range(n_slow):
+        sync_round()
+    rps_slow = n_slow / (time.perf_counter() - t0)
+    spec = AsyncRoundSpec(quorum=c["quorum"], over_select=c["over_select"],
+                          staleness_discount=0.5,
+                          deadline_s=max(5.0, 4.0 * delay_s))
+    killed, max_stale = 0, 0.0
+
+    def async_round():
+        nonlocal killed, max_stale
+        r = fed.run_buffered("bench-ap", {"method": "local_mean"}, spec,
+                             rng=np.random.default_rng(0))
+        killed += len(r["killed"])
+        max_stale = max(max_stale, float(max(r["staleness"])))
+        accepted = set(r["accepted"])
+        return mean_of([x for x in r["task"].runs
+                        if x.station_index in accepted])
+
+    rps_async, async_runs, vals_async = timed(async_round)
+    gc.enable()
+    fault_snapshot = FAULTS.snapshot()
+    FAULTS.clear()
+    staleness = fed.station_staleness()
+    fed.close()
+    resilience = 100.0 * rps_async / rps_clean
+    mean_clean, mean_async = float(np.mean(vals_clean)), float(
+        np.mean(vals_async))
+    agg_rel_err = abs(mean_async - mean_clean) / max(abs(mean_clean), 1e-9)
+    res = dict(stations=n_s, rounds=rounds, trials=c["trials"],
+               delay_s=delay_s, clean_rounds_per_s=rps_clean,
+               clean_runs=clean_runs, sync_straggler_rounds_per_s=rps_slow,
+               async_rounds_per_s=rps_async, async_runs=async_runs,
+               resilience_pct=resilience, stragglers_killed=killed,
+               max_staleness=max_stale,
+               staleness_after=staleness, aggregate_rel_err=agg_rel_err,
+               fault_snapshot=fault_snapshot)
+    print(f"ops straggler: clean {rps_clean:.2f} rounds/s, sync with a "
+          f"{delay_s:.3f} s straggler {rps_slow:.2f}, run_buffered "
+          f"{rps_async:.2f} (resilience {resilience:.1f}% vs "
+          f"{AP_RESILIENCE_PCT:g}; runs {clean_runs} and {async_runs}), "
+          f"{killed} stragglers killed, aggregate "
+          f"rel err {agg_rel_err:.2e} (limit {AGG_PARITY})")
+    gate(resilience >= AP_RESILIENCE_PCT,
+         f"straggler resilience {resilience:.1f}% < {AP_RESILIENCE_PCT}")
+    gate(rps_slow <= 0.5 * rps_clean, "sync rounds did not crater under "
+         "the straggler")
+    gate(agg_rel_err < AGG_PARITY, "the async aggregate is off the clean "
+         "one")
+
+    # the autopilot arm: the Federation is its own actuator
+    @data(1)
+    def timed_mean(df):
+        time.sleep(c["work_s"])  # a station's local work
+        return {"sum": float(df["x"].sum()), "n": int(len(df["x"]))}
+
+    cfg = FederationConfig.from_dict({
+        "federation": {"name": "ops-autopilot", "executor_workers": n_s,
+                       "autopilot": {"enabled": True}},
+        "stations": [{"name": f"station_{i}"} for i in range(n_s)],
+    })
+    afed = Federation(cfg, device=dev,
+                      algorithms={"bench-ap": {"timed_mean": timed_mean}})
+    afed.set_datasets("default", frames)
+    gate(afed.autopilot is not None and afed.autopilot.actuator is afed,
+         "the Federation is not its autopilot's actuator")
+    try:
+        FAULTS.configure(f"delay:station=0,seconds={delay_s:.3f}")
+        for _ in range(int(WATCHDOG.config["straggler_rounds"])):
+            afed.create_task("bench-ap", {"method": "timed_mean"})
+        FAULTS.clear()
+        t0 = time.perf_counter()
+        WATCHDOG.evaluate()
+        eval_ms = 1e3 * (time.perf_counter() - t0)
+        named = sorted(a["labels"].get("station") for a in
+                       WATCHDOG.active_alerts()
+                       if a["rule"] == "straggler_station")
+        applied = afed.selection_weights()
+        for _ in range(c["clean_rounds"]):
+            afed.create_task("bench-ap", {"method": "timed_mean"})
+        WATCHDOG.evaluate()
+        after = sorted(a["labels"].get("station") for a in
+                       WATCHDOG.active_alerts()
+                       if a["rule"] == "straggler_station")
+        restored = afed.selection_weights()
+        digest = afed.autopilot.digest()
+    finally:
+        FAULTS.clear()
+        afed.close()
+        WATCHDOG.evaluate()  # the closed federation's alerts clear
+    res["autopilot"] = dict(alert_stations=named, weights_applied=applied,
+                            alert_stations_after=after,
+                            weights_restored=restored, eval_ms=eval_ms,
+                            digest=digest)
+    print(f"ops straggler autopilot: straggler_station names {named} "
+          f"(evaluate {eval_ms:.3f} ms), selection weights {applied}; after "
+          f"{c['clean_rounds']} clean rounds alerts {after}, weights "
+          f"{restored}")
+    gate(0 in named, "straggler_station did not name station 0")
+    gate(applied[0] == 0.25, "station 0's selection weight did not drop to "
+         "0.25")
+    gate(0 not in after and restored[0] == 1.0,
+         "station 0's weight was not restored on clear")
+    check(not failed, "ops straggler gates failed: " + "; ".join(failed))
+    return res
+
+
+def _ops_closed_loop(torch, dev):
+    """(b) The reference's closed loop at its own size on the card."""
+    from vantage6_tpu_torch.common.faults import FAULTS
+    from vantage6_tpu_torch.common.flight import FLIGHT, read_bundle
+    from vantage6_tpu_torch.core.mesh import FederationMesh
+    from vantage6_tpu_torch.fed.fedavg import FedAvg, FedAvgSpec
+    from vantage6_tpu_torch.runtime.autopilot import ArrayActuator, Autopilot
+    from vantage6_tpu_torch.runtime.learning import LEARNING
+    from vantage6_tpu_torch.runtime.tracing import TRACER
+    from vantage6_tpu_torch.runtime.watchdog import WATCHDOG
+
+    c = OPS
+    n_s, n, d, bad, k = (c["loop_stations"], c["loop_rows"],
+                         c["loop_features"], c["loop_seeded"],
+                         c["loop_rounds"])
+    interval = c["wd_interval"]
+    failed = []
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    TRACER.configure(enabled=True, sample=1.0)
+    WATCHDOG.configure(interval=interval)
+    LEARNING.clear()
+    FLIGHT.clear()
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((n_s, n, d)).astype(np.float32)
+    beta = rng.standard_normal(d).astype(np.float32)
+    y_clean = (x @ beta + 0.05 * rng.standard_normal((n_s, n))).astype(
+        np.float32)
+    xs = torch.from_numpy(x).to(dev)
+    ys_clean = torch.from_numpy(y_clean).to(dev)
+    # the poisoning goes through the fault harness, on the card
+    FAULTS.configure(f"flip:station={bad},fraction=1.0")
+    ys = ys_clean.clone()
+    flipped = FAULTS.poison_labels(ys[bad], bad)
+    FAULTS.clear()
+    gate(flipped.device == ys.device and not torch.equal(flipped, ys[bad]),
+         "poison_labels did not flip the station's targets on the card")
+    ys[bad] = flipped
+
+    def loss_fn(p, bx, by, w):
+        return torch.sum(w * (bx @ p - by) ** 2) / torch.clamp_min(
+            torch.sum(w), 1.0)
+
+    eng = FedAvg(FederationMesh(n_s, device=dev), FedAvgSpec(
+        loss_fn=loss_fn, local_steps=c["loop_local_steps"],
+        batch_size=c["loop_batch"], local_lr=c["loop_lr"]))
+    counts = torch.full((n_s,), float(n), device=dev)
+    p0 = torch.zeros(d, device=dev)
+    key = c["loop_key"]
+    _, _, losses_bad, stats = eng.run_rounds(p0, xs, ys, counts, key, k)
+    _, _, losses_clean, _ = eng.run_rounds(p0, xs, ys_clean, counts, key, k)
+    actuator = ArrayActuator(n_s)
+    pilot = Autopilot(actuator=actuator,
+                      listener_key="chip-smoke-autopilot").attach()
+    WATCHDOG.start()
+    try:
+        with TRACER.span("chip_smoke.autopilot", kind="bench"):
+            LEARNING.history("chip-smoke-autopilot").record_engine(
+                losses_bad, stats)
+        detect_s = _wait_for(lambda: actuator.masked[bad],
+                             4 * interval + 2.0)
+        masked = np.flatnonzero(actuator.masked).tolist()
+        # the engine notes an action just after actuating it
+        _wait_for(lambda: pilot.digest()["applied"] >= 1, 1.0)
+        mid = read_bundle(FLIGHT.dump(
+            os.path.join(HERE, "chiprun_out", "ops_loop_masked.jsonl"),
+            reason="chip_smoke"))
+        _, _, losses_masked, _ = eng.run_rounds(
+            p0, xs, ys, counts, key, k, mask=actuator.participation_mask())
+        LEARNING.clear()
+        revert_s = _wait_for(lambda: not actuator.masked.any(),
+                             4 * interval + 2.0)
+        reverted = not actuator.masked.any()
+        _wait_for(lambda: pilot.digest()["reverted"] >= 1, 1.0)
+        digest = pilot.digest()
+        post = read_bundle(FLIGHT.dump(
+            os.path.join(HERE, "chiprun_out", "ops_loop.jsonl"),
+            reason="chip_smoke"))
+    finally:
+        pilot.detach()
+        WATCHDOG.stop()
+    bad_loss, masked_loss, clean_loss = (
+        float(losses_bad[-1]), float(losses_masked[-1]),
+        float(losses_clean[-1]))
+    budget = 2 * interval + 0.5
+    alerts = [r for r in mid if r["type"] == "alert"
+              and r.get("rule") == "anomalous_station"]
+    notes = [r.get("kind") for r in post if r["type"] == "note"]
+    res = dict(masked=masked, detect_s=detect_s, budget_s=budget,
+               revert_s=revert_s, reverted=reverted,
+               poisoned_loss=bad_loss, masked_loss=masked_loss,
+               clean_loss=clean_loss, digest=digest,
+               alert_records=len(alerts),
+               autopilot_notes=[n for n in notes
+                                if n and n.startswith("autopilot_")])
+    print(f"ops closed loop ({n_s} x {n} x {d}): station {bad} masked "
+          f"{detect_s:.3f} s after the record (budget {budget:g} s), masked "
+          f"{masked}; final loss poisoned {bad_loss:.5f}, masked "
+          f"{masked_loss:.5f}, clean {clean_loss:.5f}; reverted "
+          f"{revert_s:.3f} s after clear; dump: {len(alerts)} alert "
+          f"records, notes {res['autopilot_notes']}")
+    gate(masked == [bad] and detect_s <= budget,
+         f"station {bad} not auto-masked (alone) within {budget:g} s")
+    gate(masked_loss < bad_loss
+         and masked_loss <= max(1.5 * clean_loss, clean_loss + 0.05),
+         "the masked run did not recover")
+    gate(reverted, "the mask did not revert on clear")
+    gate(any(a.get("labels", {}).get("station") == bad for a in alerts),
+         "the dump taken while masked holds no alert record")
+    gate("autopilot_action" in notes and "autopilot_revert" in notes,
+         "the dump lacks the autopilot_action/autopilot_revert notes")
+    check(not failed, "ops closed-loop gates failed: " + "; ".join(failed))
+    return res
+
+
+def _ops_flagship_loop(torch, dev):
+    """(c) The closed loop on phase 6's flagship at full width, cuDNN
+    deterministic: one station's labels permuted (``CONTRARIAN_PERM``),
+    the engine's history feeding the watchdog, an ``ArrayActuator(32)``
+    masking the station hands-off, a fused run under its mask."""
+    from vantage6_tpu_torch._tree import tree_leaves
+    from vantage6_tpu_torch.runtime.autopilot import ArrayActuator, Autopilot
+    from vantage6_tpu_torch.runtime.learning import LEARNING
+    from vantage6_tpu_torch.runtime.watchdog import WATCHDOG
+    from vantage6_tpu_torch.utils.datasets import synthetic_image_classes
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    cfg, c = FEDAVG, OPS
+    n_s, k, interval = cfg["stations"], c["flagship_rounds"], c["wd_interval"]
+    sync = torch.cuda.synchronize
+    history_key = "chip-smoke-flagship"
+    failed = []
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eng = W.make_engine(n_stations=n_s, device=dev,
+                            local_steps=cfg["local_steps"],
+                            batch_size=cfg["batch"], local_lr=cfg["lr"])
+        sx, sy, counts = W.make_federated_data(
+            n_s, n_per_station=cfg["per_station"], alpha=cfg["alpha"],
+            seed=0, mesh=eng.mesh, noise=cfg["noise"])
+        bad = int(torch.argmax(counts))
+        perm = torch.tensor(CONTRARIAN_PERM, device=dev)
+        sy_bad = sy.clone()
+        sy_bad[bad] = perm[sy[bad].long()].to(sy.dtype)
+        params0 = W.init_params(1, device=dev)
+        ex, ey = synthetic_image_classes(FEDAVG_EVAL["n"],
+                                         seed=FEDAVG_EVAL["seed"],
+                                         noise=FEDAVG_EVAL["noise"])
+        key = 2
+
+        def run(y, mask=None):
+            sync()
+            t0 = time.perf_counter()
+            out = eng.run_rounds(params0, sx, y, counts, key, k, mask=mask)
+            sync()
+            return 1e3 * (time.perf_counter() - t0) / k, out
+
+        LEARNING.clear()
+        actuator = ArrayActuator(n_s)
+        pilot = Autopilot(actuator=actuator,
+                          listener_key="chip-smoke-flagship").attach()
+        torch.cuda.reset_peak_memory_stats()
+        WATCHDOG.start(interval=interval)
+        try:
+            eng.attach_history(history_key)
+            first_ms, (p_bad, _, losses_bad, stats) = run(sy_bad)
+            eng.attach_history(None)
+            capture = eng.last_capture
+            detect_s = _wait_for(lambda: actuator.masked[bad],
+                                 4 * interval + 2.0)
+            named = sorted(int(a["labels"]["station"])
+                           for a in WATCHDOG.active_alerts()
+                           if a["rule"] == "anomalous_station"
+                           and a["labels"].get("task") == history_key)
+            masked = np.flatnonzero(actuator.masked).tolist()
+            mask = actuator.participation_mask()
+            bad_ms, (p_again, *_) = run(sy_bad)
+            masked_ms, (p_masked, _, losses_masked, _) = run(sy_bad, mask)
+            hand = torch.ones(n_s, device=dev)
+            hand[bad] = 0.0
+            _, (p_hand, *_) = run(sy_bad, hand)
+            _, (p_clean, *_) = run(sy)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            LEARNING.clear()
+            revert_s = _wait_for(lambda: not actuator.masked.any(),
+                                 4 * interval + 2.0)
+            reverted = not actuator.masked.any()
+            digest = pilot.digest()
+        finally:
+            pilot.detach()
+            WATCHDOG.stop()
+            eng.attach_history(None)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    acc_bad, acc_masked, acc_clean = (W.evaluate(p, ex, ey)
+                                      for p in (p_bad, p_masked, p_clean))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a), tree_leaves(b), strict=True))
+
+    cos = stats["station_cos"].float().cpu()
+    norm = stats["station_norm"].float().cpu()
+    med = norm.median(dim=1).values
+    honest = [s for s in range(n_s) if s != bad]
+    res = dict(
+        station=bad, corruption=f"labels -> CONTRARIAN_PERM[label] = "
+        f"{list(CONTRARIAN_PERM)}", count=float(counts[bad]),
+        alert_stations=named, masked=masked, detect_s=detect_s,
+        revert_s=revert_s, reverted=reverted, digest=digest,
+        first_run_ms_per_round=first_ms, poisoned_ms_per_round=bad_ms,
+        masked_ms_per_round=masked_ms, peak_mem_gb=peak_gb,
+        accuracy=dict(poisoned=acc_bad, masked=acc_masked, clean=acc_clean),
+        final_loss=dict(poisoned=float(losses_bad[-1]),
+                        masked=float(losses_masked[-1])),
+        station_cos=cos[:, bad].tolist(),
+        station_norm_over_median=(norm[:, bad] / med).tolist(),
+        honest_min_cos=cos[:, honest].min(dim=1).values.tolist(),
+        honest_max_norm_over_median=(norm[:, honest].max(dim=1).values
+                                     / med).tolist(),
+        new_capture=eng.last_capture is not capture,
+        repeatable=same(p_again, p_bad), hand_mask_bitwise=same(p_masked,
+                                                                 p_hand))
+    ratio = [round(v, 2) for v in res["station_norm_over_median"]]
+    print(f"ops flagship loop: station {bad} ({res['count']:.0f} rows) "
+          f"permuted; cos {[round(v, 3) for v in res['station_cos']]}, "
+          f"norm/median {ratio}; honest min cos "
+          f"{[round(v, 3) for v in res['honest_min_cos']]}")
+    print(f"ops flagship loop: alert names {named}, masked {masked} "
+          f"{detect_s:.3f} s after the record; fused {bad_ms:.3f} ms/round "
+          f"poisoned, {masked_ms:.3f} masked (first run {first_ms:.3f} "
+          f"with the capture), peak {peak_gb:.3f} GB; accuracy poisoned "
+          f"{acc_bad:.4f}, masked {acc_masked:.4f}, clean {acc_clean:.4f}; "
+          f"hand mask bit for bit {res['hand_mask_bitwise']}; reverted "
+          f"{revert_s:.3f} s after clear")
+    gate(named == [bad], f"the alert names {named}, not [{bad}]")
+    gate(masked == [bad], f"the actuator masked {masked}, not [{bad}]")
+    gate(acc_masked > acc_bad, "the masked run is no more accurate than the "
+         "poisoned run")
+    gate(res["hand_mask_bitwise"], "the autopilot's mask and the same mask "
+         "by hand give different params")
+    gate(res["repeatable"], "two poisoned runs differ under deterministic "
+         "cuDNN")
+    gate(not res["new_capture"], "masking a station captured a new graph")
+    gate(reverted, "the mask did not revert on clear")
+    check(not failed, "ops flagship gates failed: " + "; ".join(failed))
+    return res
+
+
+def _ops_fleet(torch, dev):
+    """(e) A phase-10-shaped Federation pushing its fleet snapshot to an
+    in-process recorder through ``central_fedavg``. The push interval is
+    set to 0, so that every round boundary pushes. Returns the Federation,
+    open, for (d)."""
+    from vantage6_tpu_torch.common import fleet
+    from vantage6_tpu_torch.core.config import FederationConfig
+    from vantage6_tpu_torch.runtime import profiling  # noqa: F401 (series)
+    from vantage6_tpu_torch.runtime.federation import Federation
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    cfg, k = FEDAVG, OPS["fleet_rounds"]
+    n_s = cfg["stations"]
+    failed = []
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    fed_cfg = FederationConfig.from_dict({
+        "federation": {"name": "fleet-flagship", "executor_workers": 0},
+        "stations": [{"name": f"station_{i}", "organization": f"org_{i}",
+                      "databases": [{"label": "default", "type": "array"}]}
+                     for i in range(n_s)],
+    })
+    sx, sy, counts = W.make_federated_data(
+        n_s, n_per_station=cfg["per_station"], alpha=cfg["alpha"], seed=0,
+        noise=cfg["noise"])
+    sx, sy, counts = (t.to(dev) for t in (sx, sy, counts))
+    fed = Federation(fed_cfg, device=dev, algorithms={"fedavg": W})
+    fed.set_datasets("default", [
+        {"x": sx[i], "y": sy[i], "count": counts[i],
+         "sid": torch.tensor(i, dtype=torch.int32, device=dev)}
+        for i in range(n_s)])
+    built, pushed = [], []
+    build_snapshot = fleet.build_snapshot
+
+    def recording_build(*args, **kw):
+        t0 = time.perf_counter()
+        snap = build_snapshot(*args, **kw)
+        built.append((t0, snap))
+        return snap
+
+    def recorder(method, endpoint, json_body=None, **kw):
+        pushed.append((time.perf_counter(), method, endpoint, json_body))
+
+    fleet.build_snapshot = recording_build
+    try:
+        pusher = fed.attach_fleet_push(recorder,
+                                       source="federation:chip-smoke")
+        pusher.interval = 0.0
+        task = fed.create_task("fedavg", {
+            "method": "central_fedavg",
+            "kwargs": dict(n_rounds=k, local_steps=cfg["local_steps"],
+                           batch_size=cfg["batch"], lr=cfg["lr"], seed=0)},
+            organizations=[0])
+        (out,) = fed.wait_for_results(task.id)
+        torch.cuda.synchronize()
+    finally:
+        fleet.build_snapshot = build_snapshot
+    decoded = [fleet.decode_push(body) for _, _, _, body in pushed]
+    ms = [1e3 * (p[0] - b[0]) for p, b in zip(pushed, built)]
+    device_series = [sorted(n for n in d["metrics"]
+                            if n.startswith("v6t_device_")) for d in decoded]
+    res = dict(rounds=k, boundaries=k + 1, pushes=len(pushed),
+               seqs=[d["seq"] for d in decoded], ms_per_push=ms,
+               device_series=device_series[0] if device_series else [],
+               metrics_per_push=[len(d["metrics"]) for d in decoded],
+               notes_per_push=[len(d["notes"]) for d in decoded],
+               losses=out["losses"])
+    print(f"ops fleet: {len(pushed)} pushes over {k} central_fedavg rounds "
+          f"({k + 1} round boundaries), seqs {res['seqs']}, "
+          f"{res['metrics_per_push']} series, ms per push "
+          f"{[round(m, 3) for m in ms]}; device series "
+          f"{res['device_series']}")
+    gate(len(pushed) == k + 1 and len(built) == k + 1,
+         f"{len(pushed)} pushes for {k + 1} round boundaries")
+    gate(all(m == "post" and e == "telemetry" for _, m, e, _ in pushed),
+         "a push did not POST to telemetry")
+    gate(all(d == b[1] for d, b in zip(decoded, built)),
+         "a decoded push differs from its build_snapshot")
+    gate(all("v6t_device_mem_bytes_in_use" in s for s in device_series),
+         "a push lacks the device observatory's series")
+    if failed:
+        fed.close()
+    check(not failed, "ops fleet gates failed: " + "; ".join(failed))
+    return fed, res
+
+
+def _ops_watchdog(fed):
+    """(d) One ``WATCHDOG.evaluate()`` over the feeds registered now: the
+    learning plane's, the device observatory's and ``fed``'s."""
+    from vantage6_tpu_torch.common.telemetry import REGISTRY
+    from vantage6_tpu_torch.runtime.watchdog import WATCHDOG
+
+    feeds = ["learning", "device_plane", fed._watchdog_key]
+    missing = [f for f in feeds if not WATCHDOG.has_feed(f)]
+    check(not missing, f"watchdog feeds not registered: {missing}")
+    before = REGISTRY.snapshot().get("v6t_watchdog_feed_errors_total", 0.0)
+    t0 = time.perf_counter()
+    active = WATCHDOG.evaluate()
+    ms = 1e3 * (time.perf_counter() - t0)
+    after = REGISTRY.snapshot().get("v6t_watchdog_feed_errors_total", 0.0)
+    health = WATCHDOG.health()
+    res = dict(feeds=feeds, evaluate_ms=ms, feed_errors=after - before,
+               active=[(a["rule"], a["labels"]) for a in active],
+               health=health["status"], components=health["components"])
+    print(f"ops watchdog: evaluate() over {feeds} {ms:.3f} ms, feed errors "
+          f"{after - before:g}, active {res['active']}, health "
+          f"{health['status']}")
+    check(after == before, f"watchdog feeds failed: {after - before:g} "
+          "errors")
+    return res
+
+
+def _ops_identities(dev):
+    """(f) RSA identities, where ``cryptography`` imports: a run's
+    ``identity()`` signs an advert that ``org_identities()`` verifies, and
+    a 1 MB payload crosses as an RSA-sealed v2 frame."""
+    if not optional_packages()["cryptography"]:
+        out = {"identities": "not run: cryptography is not installed"}
+        print(json.dumps(out))
+        return out
+    from vantage6_tpu_torch.algorithm.context import current_environment
+    from vantage6_tpu_torch.algorithm.decorators import data
+    from vantage6_tpu_torch.common.encryption import ENC_MAGIC, RSACryptor
+    from vantage6_tpu_torch.runtime.federation import federation_from_datasets
+
+    c = OPS
+
+    @data(1)
+    def advert(df):
+        env = current_environment()
+        me, registry = env.identity(), env.org_identities()
+        i = env.metadata.node_id
+        msg = f"advert of station {i}".encode()
+        sig = me.sign_bytes(msg)
+        return {"own": RSACryptor.verify_signature(registry[i], msg, sig),
+                "other": RSACryptor.verify_signature(registry[1 - i], msg,
+                                                     sig)}
+
+    t0 = time.perf_counter()
+    RSACryptor.create_new_rsa_key()
+    keygen_ms = 1e3 * (time.perf_counter() - t0)
+    fed = federation_from_datasets([{"x": np.zeros(1)}] * 2,
+                                   {"ids": {"advert": advert}},
+                                   executor_workers=0, device=dev)
+    try:
+        t0 = time.perf_counter()
+        task = fed.create_task("ids", {"method": "advert"})
+        verdicts = fed.wait_for_results(task.id)
+        task_ms = 1e3 * (time.perf_counter() - t0)
+        a, b = fed._station_identity(0), fed._station_identity(1)
+    finally:
+        fed.close()
+    payload = np.random.default_rng(0).integers(
+        0, 256, c["payload_bytes"], dtype=np.uint8).tobytes()
+    enc_ms, dec_ms, ok = [], [], True
+    for _ in range(c["crypto_turns"]):
+        t0 = time.perf_counter()
+        frame = a.encrypt_bytes(payload, b.public_key_str)
+        t1 = time.perf_counter()
+        back = b.decrypt_bytes(frame)
+        enc_ms.append(1e3 * (t1 - t0))
+        dec_ms.append(1e3 * (time.perf_counter() - t1))
+        ok &= back == payload and frame[:len(ENC_MAGIC)] == ENC_MAGIC
+    res = dict(verdicts=verdicts, keygen_ms=keygen_ms,
+               signing_task_ms=task_ms, payload_bytes=len(payload),
+               encrypt_ms=sorted(enc_ms)[len(enc_ms) // 2],
+               decrypt_ms=sorted(dec_ms)[len(dec_ms) // 2], round_trip=ok)
+    print(f"ops identities: {RSACryptor.KEY_BITS}-bit keygen "
+          f"{keygen_ms:.1f} ms, signing task (2 keygens, sign, verify) "
+          f"{task_ms:.1f} ms, verdicts {verdicts}; 1 MB v2 frame encrypt "
+          f"{res['encrypt_ms']:.3f} ms, decrypt {res['decrypt_ms']:.3f} ms, "
+          f"round trip {ok}")
+    check(all(v == {"own": True, "other": False} for v in verdicts),
+          f"advert verification failed: {verdicts}")
+    check(ok, "the RSA-sealed v2 frame did not round-trip")
+    return res
+
+
+def phase_ops(fa, torch, dev):
+    """Phase 14 (module doc): the ops plane around FedAvg on the card."""
+    import gc
+
+    from vantage6_tpu_torch.common.faults import FAULTS
+    from vantage6_tpu_torch.runtime.learning import LEARNING
+
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    # federations that earlier phases left open are collected, so their
+    # watchdog feeds drop out; the learning plane starts empty
+    gc.collect()
+    LEARNING.clear()
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    res = {}
+    try:
+        res["straggler"] = _ops_straggler(torch, dev)
+        res["closed_loop"] = _ops_closed_loop(torch, dev)
+        res["flagship_loop"] = _ops_flagship_loop(torch, dev)
+        fed, res["fleet"] = _ops_fleet(torch, dev)
+        try:
+            res["watchdog"] = _ops_watchdog(fed)
+        finally:
+            fed.close()
+        res["identities"] = _ops_identities(dev)
+    finally:
+        FAULTS.clear()
+    torch.cuda.synchronize()
+    launches = dict(fa.flash_forward_cuda.variant_launches)
+    res["launches"] = launches
+    print(f"ops flash launches: {launches} (0 expected: host planes, the "
+          f"linear loop and the CNN)")
+    check(sum(launches.values()) == 0,
+          f"phase 14 launched a flash kernel: {launches}")
+    return res
+
+
 def _leaves(tree):
     from vantage6_tpu_torch._tree import tree_leaves
 
@@ -3450,6 +4185,8 @@ def main(argv: list[str]) -> int:
     planes = phase_planes(fa, torch, dev)
     workloads = phase_workloads(fa, torch, dev, profile="--profile" in argv)
     distributed = phase_distributed(fa, torch, dev)
+    print(json.dumps({"optional_packages": optional_packages()}))
+    ops = phase_ops(fa, torch, dev)
     print(f"fedavg-cnn: {fedavg['fused_ms_per_round']:.3f} ms/round fused "
           f"({fedavg['rounds_per_s']:.1f} rounds/s), "
           f"{fedavg['eager_ms_per_round']:.3f} ms/round eager, "
@@ -3517,6 +4254,15 @@ def main(argv: list[str]) -> int:
     for name, r in distributed["device_engine"]["calls"].items():
         print(f"distributed {name}: {r['ms']:.3f} ms per call, peak "
               f"{r['peak_mem_gb']:.3f} GB on {card}")
+    st, cl, fl = ops["straggler"], ops["closed_loop"], ops["flagship_loop"]
+    print(f"ops: straggler resilience {st['resilience_pct']:.1f}% "
+          f"({st['async_rounds_per_s']:.2f} vs {st['clean_rounds_per_s']:.2f} "
+          f"rounds/s); closed loop masked in {cl['detect_s']:.3f} s; flagship "
+          f"masked in {fl['detect_s']:.3f} s, fused "
+          f"{fl['poisoned_ms_per_round']:.3f}/{fl['masked_ms_per_round']:.3f} "
+          f"ms/round poisoned/masked, peak {fl['peak_mem_gb']:.3f} GB; "
+          f"watchdog evaluate {ops['watchdog']['evaluate_ms']:.3f} ms; fleet "
+          f"push {np.median(ops['fleet']['ms_per_push']):.3f} ms on {card}")
 
     # each kernel at the shape and dtype it serves: the tensor-core kernels
     # at the main path's head dim 128, the CUDA-core one in bf16 at head
@@ -3539,6 +4285,8 @@ def main(argv: list[str]) -> int:
         launches_task_plane=task_plane["launches"][variant],
         launches_planes=planes["launches"][variant],
         launches_workloads=workloads["launches"][variant],
+        launches_distributed=distributed["launches"][variant],
+        launches_ops=ops["launches"][variant],
         **{key: times[case][variant][key] for key in (
             "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
@@ -3549,20 +4297,21 @@ def main(argv: list[str]) -> int:
                   ring=ring, parallel_ops=parallel_ops, wire=wire,
                   fedavg=fedavg, compression=compression, analysis=analysis,
                   task_plane=task_plane, planes=planes,
-                  workloads=workloads, distributed=distributed,
+                  workloads=workloads, distributed=distributed, ops=ops,
                   kernels=kernels,
                   times=times, profile=prof,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump(result, f, indent=1)
+        json.dump(result, f, indent=1, default=str)
     print(json.dumps({"slice": slice_res, "ring": ring,
                       "parallel_ops": parallel_ops, "wire": wire,
                       "fedavg": fedavg,
                       "compression": compression, "analysis": analysis,
                       "task_plane": task_plane, "planes": planes,
-                      "workloads": workloads, "distributed": distributed}))
+                      "workloads": workloads, "distributed": distributed,
+                      "ops": ops}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -145,13 +145,30 @@ def test_devices_per_station_needs_a_group():
 
 
 def test_autopilot_message_names_a_roadmap_entry():
+    """The autopilot is ported: a config that enables it gets an Autopilot
+    acting on the Federation, which ``close()`` detaches. What a Federation
+    still refuses (stations spanning ranks) names an existing ROADMAP
+    entry."""
     import re
 
+    from vantage6_tpu_torch.runtime.autopilot import Autopilot
     from vantage6_tpu_torch.runtime.federation import Federation
+    from vantage6_tpu_torch.runtime.watchdog import WATCHDOG
 
     cfg = FederationConfig.from_dict({
         "federation": {"autopilot": {"enabled": True}},
         "stations": [{"name": "a"}],
+    })
+    fed = Federation(cfg, device="cpu")
+    pilot = fed.autopilot
+    assert isinstance(pilot, Autopilot) and pilot.actuator is fed
+    assert WATCHDOG._listeners.get(pilot._listener_key) == pilot.on_transition
+    fed.close()
+    assert fed.autopilot is None
+    assert pilot._listener_key not in WATCHDOG._listeners
+    cfg = FederationConfig.from_dict({
+        "federation": {"devices_per_station": 2},
+        "stations": [{"name": "a"}, {"name": "b"}],
     })
     with pytest.raises(NotImplementedError) as e:
         Federation(cfg, device="cpu")

@@ -193,17 +193,26 @@ def test_one_card_refuses_devices_per_station():
     ({"autopilot": {"enabled": True}}, r"11\.2"),
 ])
 def test_unported_planes_raise_rather_than_being_ignored(fed_raw, item):
-    """A plane the port lacks raises; compression (item 9.2 (1)) is
-    ported, so its config arms the federation's compressor instead."""
+    """A plane the port lacks raises; compression (item 9.2 (1)) and the
+    autopilot (item 11.2) are ported, so their config is acted on instead:
+    it arms the federation's compressor, or attaches an Autopilot with the
+    Federation as its actuator, which ``close()`` detaches."""
+    from vantage6_tpu_torch.runtime.autopilot import Autopilot
+    from vantage6_tpu_torch.runtime.watchdog import WATCHDOG
+
     raw = {"federation": fed_raw, "stations": [{"name": "a"}]}
     cfg = TORCH.config.FederationConfig.from_dict(raw)
+    fed = TORCH.federation.Federation(cfg, device="cpu")
     if "compression" in fed_raw:
-        fed = TORCH.federation.Federation(cfg, device="cpu")
         assert fed._delta_compressor.spec == cfg.compressor
         fed.close()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        TORCH.federation.Federation(cfg, device="cpu")
+    pilot = fed.autopilot
+    assert isinstance(pilot, Autopilot) and pilot.actuator is fed
+    assert WATCHDOG._listeners.get(pilot._listener_key) == pilot.on_transition
+    fed.close()
+    assert fed.autopilot is None
+    assert pilot._listener_key not in WATCHDOG._listeners
 
 
 # ----------------------------------------------------- statuses and policies

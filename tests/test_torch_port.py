@@ -13,14 +13,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_and_chip_smoke_import_without_jax():
-    """In a fresh interpreter with ``jax``, ``pandas`` and ``yaml`` blocked,
-    every module of the port and ``chip_smoke.py`` import, and no
-    ``vantage6_tpu`` module is loaded."""
+    """In a fresh interpreter with ``jax``, ``pandas``, ``yaml``,
+    ``requests`` and ``cryptography`` blocked, every module of the port and
+    ``chip_smoke.py`` import, a Federation with the autopilot enabled
+    builds and closes on the CPU, and no ``vantage6_tpu`` module is
+    loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        sys.modules["jax"] = None
-        sys.modules["pandas"] = None
-        sys.modules["yaml"] = None
+        for blocked in ("jax", "pandas", "yaml", "requests", "cryptography"):
+            sys.modules[blocked] = None
         sys.path.insert(0, sys.argv[1])
         import vantage6_tpu_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -28,6 +29,14 @@ def test_port_and_chip_smoke_import_without_jax():
         for name in names:
             importlib.import_module(name)
         import chip_smoke  # noqa: F401
+        from vantage6_tpu_torch.core.config import FederationConfig
+        from vantage6_tpu_torch.runtime.federation import Federation
+        cfg = FederationConfig.from_dict({
+            "federation": {"autopilot": {"enabled": True}},
+            "stations": [{"name": "a"}, {"name": "b"}]})
+        fed = Federation(cfg, device="cpu")
+        assert fed.autopilot.actuator is fed
+        fed.close()
         leaked = sorted(m for m in sys.modules
                         if m == "vantage6_tpu" or m.startswith("vantage6_tpu."))
         assert not leaked, leaked
@@ -38,10 +47,11 @@ def test_port_and_chip_smoke_import_without_jax():
                          capture_output=True, text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     # the transformer slice's 11 modules, FedAvg-CNN's 6, compression and
-    # the analysis programs' 6, parallel/ and common/ (5), and the task
+    # the analysis programs' 6, parallel/ and common/ (5), the task
     # plane's 19 (algorithm/ 6, runtime/ 7, common/ 3, config, guards,
-    # average)
-    assert int(res.stdout.strip().splitlines()[-1]) >= 47
+    # average), the observed planes' 3, the parity ladder's 4, the
+    # multi-process 2, and the ops plane's 9 (common/ 7, runtime/ 2)
+    assert int(res.stdout.strip().splitlines()[-1]) >= 65
 
 
 def test_mesh_without_cuda_requires_explicit_cpu(monkeypatch):

@@ -25,10 +25,9 @@ Env knobs: `V6T_FLIGHT_DIR` (bundle directory, default the system temp
 dir), `V6T_FLIGHT_BUFFER` (per-ring capacity, default 2048).
 
 The port's copy of ``vantage6_tpu/common/flight.py``: framework-free, the
-same rings, record types and bundle layout, so ``tools/doctor.py`` reads
-the port's bundles too. One difference: the port has no watchdog yet, so
-a dump carries no ``alert`` records (the JAX module appends the
-watchdog's active alerts when one is live).
+same rings, record types and bundle layout (a dump appends the port
+watchdog's active alerts as ``alert`` records), so ``tools/doctor.py``
+reads the port's bundles too.
 """
 from __future__ import annotations
 
@@ -167,8 +166,9 @@ class FlightRecorder:
         records += [{"type": "span", **r} for r in spans]
         records += [{"type": "note", **r} for r in notes]
         records += [{"type": "metrics", **r} for r in metrics]
-        # final-state extra, best-effort: a fresh telemetry snapshot (the
-        # recorder itself does not depend on telemetry)
+        # final-state extras, best-effort: a fresh telemetry snapshot and
+        # the watchdog's alert state (the recorder itself depends on
+        # neither)
         try:
             from vantage6_tpu_torch.common.telemetry import REGISTRY
 
@@ -176,6 +176,13 @@ class FlightRecorder:
                 "type": "metrics", "ts": time.time(), "final": True,
                 "values": REGISTRY.snapshot(),
             })
+        except Exception:
+            pass
+        try:
+            from vantage6_tpu_torch.runtime import watchdog as _wd
+
+            for alert in _wd.WATCHDOG.active_alerts():
+                records.append({"type": "alert", **alert})
         except Exception:
             pass
         # learning-plane final state: each tracked task's convergence

@@ -1,9 +1,9 @@
 """Unified telemetry registry: one named counter/gauge/histogram API.
 
 The port's copy of ``vantage6_tpu/common/telemetry.py``: framework-free,
-the same names and render, with the ``wire`` collector reading the port's
-``common/serialization.py`` and the ``executor`` collector its
-``runtime/executor.py``.
+the same names and render, with the ``wire``, ``rest`` and ``executor``
+collectors reading the port's ``common/serialization.py``,
+``common/rest.py`` and ``runtime/executor.py``.
 
 Before this module, every perf PR grew its own island of counters —
 `serialization.WIRE_STATS`, `rest.REST_STATS`, executor inflight counts,
@@ -481,9 +481,7 @@ REGISTRY = TelemetryRegistry()
 
 
 # ------------------------------------------------- process-wide collectors
-# The pre-existing stat islands, absorbed. The port has no REST transport
-# yet (it comes with the node), so the ``rest`` collector is not
-# registered and its series stay declared but unreported. Imports are lazy inside each
+# The pre-existing stat islands, absorbed. Imports are lazy inside each
 # collector so importing telemetry stays dependency-free; a collector for
 # a module never imported reports its zeros by importing it then.
 
@@ -505,6 +503,20 @@ def _wire_collector() -> dict[str, float]:
     }
 
 
+def _rest_collector() -> dict[str, float]:
+    from vantage6_tpu_torch.common.rest import REST_STATS
+
+    s = REST_STATS.snapshot()
+    return {
+        "v6t_rest_calls_total": s["calls"],
+        "v6t_rest_errors_total": s["errors"],
+        "v6t_rest_stale_retries_total": s["stale_retries"],
+        "v6t_rest_bytes_sent_total": s["bytes_sent"],
+        "v6t_rest_bytes_received_total": s["bytes_received"],
+        "v6t_rest_seconds_total": s["seconds"],
+    }
+
+
 def _executor_collector() -> dict[str, float]:
     from vantage6_tpu_torch.runtime.executor import _LIVE_POOLS
 
@@ -517,4 +529,5 @@ def _executor_collector() -> dict[str, float]:
 
 
 REGISTRY.register_collector("wire", _wire_collector)
+REGISTRY.register_collector("rest", _rest_collector)
 REGISTRY.register_collector("executor", _executor_collector)

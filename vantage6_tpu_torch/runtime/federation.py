@@ -24,14 +24,14 @@ Two execution modes per partial function:
   with the traceback; there is no per-station loop to fall back to.
 
 Counterpart of ``vantage6_tpu/runtime/federation.py``, on one card, with
-the learning-plane record of device aggregations (``learning_history``)
-and the host-plane delta compression (``compress_update``/
-``decompress_update``, error feedback kept per station). Not ported yet,
-each in ROADMAP.md: the watchdog feed, the autopilot, the fleet push,
-fault injection and the federation's own flight-recorder notes; RSA org
-identities (``identity``/``org_identities`` are None in a run's
-environment). A config that asks for the autopilot raises
-``NotImplementedError``.
+the learning-plane record of device aggregations (``learning_history``),
+the host-plane delta compression (``compress_update``/
+``decompress_update``, error feedback kept per station) and the ops
+plane: the watchdog feed (``watchdog_feed``), the autopilot with the
+Federation as its actuator (``autopilot: {enabled: true}``), the fleet
+push at round boundaries (``attach_fleet_push``), the ``V6T_FAULTS``
+points of host runs, the ``async_round`` flight note, and RSA org
+identities (a run's ``identity``/``org_identities``, made on first use).
 """
 from __future__ import annotations
 
@@ -80,11 +80,6 @@ class Federation:
         metrics: Any = None,
     ):
         config.validate()
-        if (config.autopilot or {}).get("enabled"):
-            raise NotImplementedError(
-                "the autopilot is not ported yet: ROADMAP.md queue 1, "
-                "item 11.2"
-            )
         if config.devices_per_station != 1:
             raise NotImplementedError(
                 "a Federation runs every station in this process; stations "
@@ -102,8 +97,8 @@ class Federation:
             for i, s in enumerate(config.stations)
         ]
         self._online = [True] * config.n_stations
-        # --------------------------------------------- operator actuator state
-        # masked: operator exclusion from selection AND the
+        # -------------------------------------------- autopilot actuator state
+        # masked: autopilot (or operator) exclusion from selection AND the
         # participation mask — an anomalous station keeps its runs but its
         # results carry zero aggregate weight. selection weights bias
         # run_buffered's over-selection away from stragglers. staleness
@@ -127,6 +122,9 @@ class Federation:
         self._station_secrets = [
             _secrets.token_bytes(32) for _ in range(config.n_stations)
         ]
+        # org RSA identity keys (advert signing, secureagg_dh): generated
+        # LAZILY — RSA keygen costs seconds and most workloads never sign
+        self._identity_cryptors: list[Any] = [None] * config.n_stations  # guarded-by: _identity_lock
         # station data: per-station {label: dataset}; device-mode stacked
         # arrays cached per label.
         self._data: list[dict[str, Any]] = [{} for _ in self.stations]
@@ -184,7 +182,87 @@ class Federation:
                 self.compressor, device=self.mesh.device)
         self._inflight_lock = threading.Lock()
         self._stacked_lock = threading.Lock()   # _stacked_cache builds
+        self._identity_lock = threading.Lock()  # lazy RSA keygen
         self._session_lock = threading.Lock()   # session bookkeeping
+        # ------------------------------------------------------- watchdog
+        # feed the process watchdog this federation's run/queue state
+        # (stuck_run + queue_buildup + straggler_station in the simulator
+        # topology, same rules the server feeds from its DB). Weakref
+        # closure: an abandoned Federation must not be pinned alive by the
+        # singleton — a dead ref yields None and close() unregisters.
+        import weakref
+
+        from vantage6_tpu_torch.runtime.watchdog import WATCHDOG
+
+        self._watchdog_key = key = f"federation-{id(self)}"
+        wref = weakref.ref(self)
+
+        def _feed() -> dict[str, Any] | None:
+            fed = wref()
+            if fed is None:
+                # GC'd without close(): reap the registration from inside
+                # its own callback, or abandoned Federations would grow
+                # the singleton's feed table forever
+                WATCHDOG.unregister_feed(key, _feed)
+                return None
+            return fed.watchdog_feed()
+
+        self._watchdog_feed_fn = _feed
+        WATCHDOG.register_feed(key, _feed)
+        # ------------------------------------------------------- autopilot
+        # opt-in closed-loop remediation (config.autopilot.enabled): the
+        # Federation is its own actuator — mask_station /
+        # set_selection_weight / set_admission_limited below. close()
+        # detaches the listener.
+        # ------------------------------------------------------ fleet push
+        # opt-in (attach_fleet_push): a Federation embedded next to a real
+        # control plane ships its snapshot at round boundaries, so the
+        # fleet view covers the aggregator process too — not just daemons
+        self.fleet = None
+        self.autopilot = None
+        ap_cfg = dict(config.autopilot or {})
+        if ap_cfg.get("enabled"):
+            from vantage6_tpu_torch.runtime.autopilot import Autopilot
+
+            self.autopilot = Autopilot(
+                actuator=self,
+                dry_run=ap_cfg.get("dry_run"),
+                disable=set(ap_cfg.get("disable") or ()),
+                config={
+                    k: v for k, v in ap_cfg.items()
+                    if k not in ("enabled", "dry_run", "disable")
+                },
+                listener_key=f"autopilot-{key}",
+            ).attach()
+
+    # ------------------------------------------------------------ fleet push
+    def attach_fleet_push(
+        self,
+        request: Callable[..., Any],
+        source: str | None = None,
+        interval: float | None = None,
+    ) -> Any:
+        """Arm fleet telemetry pushes for this Federation. ``request`` is
+        any REST callable with the ``request(method, endpoint,
+        json_body=...)`` shape (a bound ``RestSession.request``, a
+        daemon's replica-rotating ``request``). Pushes ride the round
+        boundaries (:meth:`wait_for_results`, :meth:`run_buffered`,
+        :meth:`run_fused_rounds`), rate-limited to the push interval —
+        an embedder that never calls this pays nothing."""
+        from vantage6_tpu_torch.common.fleet import FleetPusher
+
+        self.fleet = FleetPusher(
+            source=source or f"federation:{self.config.name}",
+            service="federation",
+            request=request,
+            interval=interval,
+        )
+        return self.fleet
+
+    def _fleet_tick(self) -> None:
+        pusher = self.fleet
+        if pusher is not None:
+            pusher.maybe_push()  # fail-soft + capability-pinned inside
 
     # ------------------------------------------------------------------ data
     def load_all_data(self) -> None:
@@ -289,8 +367,8 @@ class Federation:
 
     def participation_mask(self) -> torch.Tensor:
         """1.0 for stations that may contribute to aggregates: online AND
-        not masked out by the operator. An [S] f32 tensor on the mesh's
-        device."""
+        not masked out by the autopilot/operator. An [S] f32 tensor on the
+        mesh's device."""
         return torch.tensor(
             [
                 1.0 if (on and not masked) else 0.0
@@ -300,9 +378,10 @@ class Federation:
             device=self.mesh.device,
         )
 
-    # ------------------------------------------------- operator capabilities
-    # The duck-typed actuator surface the JAX package's autopilot probes;
-    # here operators call them directly (the autopilot is not ported).
+    # ------------------------------------------------- autopilot capabilities
+    # The duck-typed actuator surface runtime.autopilot probes (the engine
+    # skips policies whose capability is absent). All are also callable by
+    # operators directly.
     def mask_station(self, station: int, masked: bool = True) -> None:
         """Exclude (or re-include) a station from `participation_mask` and
         from run_buffered selection — the anomalous_station remediation.
@@ -616,6 +695,18 @@ class Federation:
             REGISTRY.counter("v6t_async_stragglers_killed_total").inc(
                 len(killed)
             )
+        try:
+            from vantage6_tpu_torch.common.flight import FLIGHT
+
+            FLIGHT.note(
+                "async_round", task=task.id, quorum=quorum,
+                selected=selected, accepted=accepted_stations,
+                killed=sorted(killed), round_s=time.monotonic() - t0,
+                deadline_s=spec.deadline_s,
+            )
+        except Exception:  # pragma: no cover
+            pass
+        self._fleet_tick()  # round boundary: ship the fleet snapshot
         return {
             "task": task,
             "selected": selected,
@@ -685,6 +776,7 @@ class Federation:
             else:
                 out = dispatch()
         self._fused_dispatches += 1
+        self._fleet_tick()  # dispatch boundary: ship the fleet snapshot
         dt = time.monotonic() - t0
         return {
             "params": out[0],
@@ -788,6 +880,7 @@ class Federation:
                 f"{waiting} — bring them online or re-create the task "
                 "excluding them"
             )
+        self._fleet_tick()  # round boundary: ship the fleet snapshot
         return task.results()
 
     # -------------------------------------------------------------- dispatch
@@ -825,7 +918,7 @@ class Federation:
             elif self._admission_limited and not getattr(
                 fn, "__v6t_device_step__", False
             ):
-                # admission control (queue_buildup): host runs
+                # autopilot admission control (queue_buildup): host runs
                 # queue PENDING instead of dispatching; lifting the limit
                 # drains them (set_admission_limited). Device-mode programs
                 # are exempt — they never transit the executor backlog the
@@ -935,14 +1028,115 @@ class Federation:
                     r.status == TaskStatus.COMPLETED for r in task.runs
                 )
 
+    # -------------------------------------------------------------- identity
+    def _station_identity(self, station: int):
+        """This station's org RSA identity cryptor (lazy keygen, cached) —
+        each real node would hold its own key file; the simulator generates
+        one per station the first time an algorithm signs. Keygen is locked:
+        concurrent pooled runs must not both generate (and then disagree on)
+        a station's identity."""
+        if self._identity_cryptors[station] is None:
+            from vantage6_tpu_torch.common.encryption import RSACryptor
+
+            with self._identity_lock:
+                if self._identity_cryptors[station] is None:
+                    self._identity_cryptors[station] = RSACryptor(
+                        RSACryptor.create_new_rsa_key()
+                    )
+        return self._identity_cryptors[station]
+
+    def _org_identity_registry(self) -> dict[int, str]:
+        """station index -> base64 PEM public identity key, for ALL
+        stations — the out-of-band trust root advert verification needs."""
+        return {
+            i: self._station_identity(i).public_key_str
+            for i in range(self.n_stations)
+        }
+
+    def _resolve_frame(self, task: Task, station: int, d: dict[str, Any]):
+        if d.get("type") == "session":
+            handle = d.get("dataframe") or d.get("label")
+            store = self._session_stores[station].get(task.session_id, {})
+            if handle not in store:
+                raise KeyError(
+                    f"session {task.session_id} has no materialized "
+                    f"dataframe {handle!r} at station {station} (did its "
+                    "extraction task run?)"
+                )
+            return store[handle]
+        return self.station_data(station, d.get("label", "default"))
+
+    def _store_session_result(self, task: Task, run: Run, result: Any):
+        """Persist a store_as run's dataframe at ITS station; the run's
+        recorded result is metadata only (same contract as node.runner)."""
+        import pandas as pd
+
+        df = result
+        if isinstance(df, dict) and "dataframe" in df:
+            df = df["dataframe"]
+        if not isinstance(df, pd.DataFrame):
+            raise RuntimeError(
+                f"task stores dataframe {task.store_as!r} but the algorithm"
+                f" returned {type(result).__name__}, not a DataFrame"
+            )
+        meta = {
+            "stored": task.store_as,
+            "session_id": task.session_id,
+            "rows": int(len(df)),
+            "columns": [
+                {"name": str(c), "dtype": str(t)}
+                for c, t in df.dtypes.items()
+            ],
+        }
+        # store + bookkeeping in ONE locked region, gated on the session
+        # still existing: a delete_session racing this finish must neither
+        # crash a successfully-computed run (KeyError on the popped
+        # bookkeeping — same deleted-mid-run tolerance as
+        # _refresh_session_ready) nor see the dataframe re-inserted after
+        # its cleanup (an orphaned-store leak)
+        with self._session_lock:
+            session = self._sessions.get(task.session_id)
+            if session is not None:
+                self._session_stores[run.station_index].setdefault(
+                    task.session_id, {}
+                )[task.store_as] = df
+                book = session["dataframes"].get(task.store_as)
+                if book is not None:
+                    book["columns"] = meta["columns"]
+        return meta
+
+    def _refresh_session_ready(self, task: Task) -> None:
+        """ready = EVERY station's run completed. Evaluated AFTER each run's
+        finish (not inside _store_session_result): with pooled execution two
+        stations finishing concurrently would each see the other still
+        ACTIVE and neither would flip the flag."""
+        with self._session_lock:
+            session = self._sessions.get(task.session_id)
+            if session is None:  # deleted mid-run
+                return
+            book = session["dataframes"].get(task.store_as)
+            if book is not None:
+                book["ready"] = all(
+                    r.status == TaskStatus.COMPLETED for r in task.runs
+                )
+
     # ------------------------------------------------------------- host mode
     def _run_host(
         self, task: Task, fn: Callable, run: Run, trace_parent: Any = None,
     ) -> None:
         from vantage6_tpu_torch.algorithm.client import AlgorithmClient
+        from vantage6_tpu_torch.common.faults import FAULTS
 
         if not run.start():
             return  # killed between queue-pop and start
+        # fault-injection points (common.faults, V6T_FAULTS=): a delayed
+        # station models slow hardware/data skew (straggler food group); a
+        # dropped result leaves the run wedged ACTIVE — the stuck_run
+        # watchdog rule's food, and what a crashed daemon looks like from
+        # the server's side
+        FAULTS.sleep_station_delay(run.station_index)
+        if FAULTS.drop_result(run.station_index):
+            return
         try:
             frames = [
                 self._resolve_frame(task, run.station_index, d)
@@ -962,6 +1156,10 @@ class Federation:
                 collaboration=self.config.name,
             ),
             station_secret=self._station_secrets[run.station_index],
+            # zero-arg factories: RSA keygen costs seconds, so identities
+            # materialize only if the algorithm actually signs/verifies
+            identity=lambda i=run.station_index: self._station_identity(i),
+            org_identities=self._org_identity_registry,
         )
         args = task.input_.get("args", []) or []
         kwargs = task.input_.get("kwargs", {}) or {}
@@ -1277,10 +1475,106 @@ class Federation:
             "wire": wire_totals(task.runs),
         }
 
+    def watchdog_feed(self) -> dict[str, Any]:
+        """This federation's state for the watchdog rules
+        (runtime.watchdog): ACTIVE in-flight runs (stuck_run), executor
+        queue depth (queue_buildup — the telemetry gauges cover the
+        totals; this adds per-station queue detail to the feed for
+        operators reading /api/alerts context), and the straggler view of
+        recently finished multi-run tasks (straggler_station)."""
+        now = time.time()
+        with self._inflight_lock:
+            inflight = set(self._inflight_runs)
+        runs = []
+        rounds = []
+        tasks = list(self.tasks.values())
+        # resolve the (small) inflight set by scanning NEWEST tasks first
+        # and stopping once every id is found — the feed runs every
+        # watchdog tick, and a long-lived simulator holds its whole task
+        # history in this dict; O(all runs ever) per tick would make the
+        # watchdog itself the slow component
+        pending = set(inflight)
+        for task in reversed(tasks):
+            if not pending:
+                break
+            for run in task.runs:
+                if run.id not in pending:
+                    continue
+                pending.discard(run.id)
+                if run.status == TaskStatus.ACTIVE:
+                    runs.append({
+                        "run_id": run.id,
+                        "task_id": task.id,
+                        "status": "active",
+                        "assigned_at": run.assigned_at,
+                        "started_at": run.started_at,
+                        "organization_id": run.station_index,
+                    })
+        # WEDGED runs: ACTIVE but no longer queued/executing on the pool —
+        # a worker returned without the run reaching a terminal state (a
+        # dropped result, fault-injected or real). Exactly the stuck_run
+        # rule's food, and invisible to the inflight scan above.
+        seen_ids = {r["run_id"] for r in runs}
+        for task in tasks[-self.config.n_stations * 8:]:
+            for run in task.runs:
+                if (
+                    run.status == TaskStatus.ACTIVE
+                    and run.id not in inflight
+                    and run.id not in seen_ids
+                ):
+                    runs.append({
+                        "run_id": run.id,
+                        "task_id": task.id,
+                        "status": "active",
+                        "assigned_at": run.assigned_at,
+                        "started_at": run.started_at,
+                        "organization_id": run.station_index,
+                    })
+        for task in tasks[-self.config.n_stations * 8:]:
+            if len(task.runs) < 2 or not task.is_finished:
+                continue
+            execs = [
+                (r.station_index, r.finished_at - r.started_at)
+                for r in task.runs
+                if r.started_at is not None and r.finished_at is not None
+            ]
+            if len(execs) < 2:
+                continue
+            durs = [d for _, d in execs]
+            straggler, max_s = max(execs, key=lambda e: e[1])
+            rounds.append({
+                "task_id": task.id,
+                "straggler_station": straggler,
+                "max_exec_s": max_s,
+                "mean_exec_s": sum(durs) / len(durs),
+                "n": len(execs),
+            })
+        executor = self._executor
+        state: dict[str, Any] = {"runs": runs, "rounds": rounds, "now": now}
+        if executor is not None:
+            state["executor"] = executor.stats()
+        # autopilot/async context for operators reading /api/alerts: which
+        # stations are currently masked or down-weighted, and the
+        # admission flag (scalar keys are ignored by feed_items — rules
+        # only consume the list-valued entries above)
+        state["stations_masked"] = [
+            i for i, m in enumerate(self._masked) if m
+        ]
+        state["selection_weights"] = list(self._selection_weights)
+        state["staleness"] = list(self._staleness)
+        state["admission_limited"] = self._admission_limited
+        return state
+
     # -------------------------------------------------------------- teardown
     def close(self) -> None:
         """Tear down the executor pool (queued-but-unstarted runs are
         dropped). Idempotent; the Federation stays readable."""
+        from vantage6_tpu_torch.runtime.watchdog import WATCHDOG
+
+        if self.autopilot is not None:
+            self.autopilot.detach()
+            self.autopilot = None
+        WATCHDOG.unregister_feed(self._watchdog_key, self._watchdog_feed_fn)
         if self._executor is not None:
             self._executor.close()
             self._executor = None

@@ -36,11 +36,11 @@ aggregation PR (ROADMAP item 2) will consume to accept/down-weight
 updates — the exact per-client problem PAPERS.md's CLIP paper targets.
 
 The port's copy of ``vantage6_tpu/runtime/learning.py``: numpy on the
-host, the same records, summaries, series and spans. Two differences:
+host, the same records, summaries, series and spans. One difference:
 :meth:`RoundHistory.record_engine` takes the port engine's torch stats
 (on the card or the CPU) and pulls each dispatch's stats to the host in
-one copy; and the watchdog's ``learning`` feed is not registered (the port
-has no watchdog yet), though :meth:`LearningRegistry.feed` is here.
+one copy. The watchdog reads :meth:`LearningRegistry.feed` as its
+``learning`` feed.
 """
 from __future__ import annotations
 
@@ -809,3 +809,13 @@ class LearningRegistry:
 
 
 LEARNING = LearningRegistry()
+
+
+# feed the process watchdog (same import-time pattern as the device
+# observatory's "device_plane" feed): the three learning rules read this
+try:
+    from vantage6_tpu_torch.runtime.watchdog import WATCHDOG as _WATCHDOG
+
+    _WATCHDOG.register_feed("learning", LEARNING.feed)
+except Exception:  # pragma: no cover - watchdog must stay optional here
+    pass

@@ -57,9 +57,9 @@ returns the Chrome trace's path as ``"trace"`` beside the reference's
 keys; :func:`trace_kernel_events` counts the device kernels in such a
 trace. The JAX package has neither.
 
-Not ported yet: the watchdog's ``device_plane`` feed registration (the
-port has no watchdog); :meth:`DeviceObservatory.watchdog_feed` itself is
-here. Disable the layer with ``V6T_DEVICE_OBS=0`` (calls forward
+The watchdog reads :meth:`DeviceObservatory.watchdog_feed` as its
+``device_plane`` feed (``recompile_storm`` names the retracing function
+from it). Disable the layer with ``V6T_DEVICE_OBS=0`` (calls forward
 untouched).
 """
 from __future__ import annotations
@@ -786,3 +786,12 @@ def _observatory_collector() -> dict[str, float]:
 
 
 REGISTRY.register_collector("device_obs", _observatory_collector)
+
+# feed the process watchdog: the recompile_storm rule names its culprit
+# from the retrace events this feed carries
+try:
+    from vantage6_tpu_torch.runtime.watchdog import WATCHDOG as _WATCHDOG
+
+    _WATCHDOG.register_feed("device_plane", DEVICE_OBS.watchdog_feed)
+except Exception:  # pragma: no cover - watchdog must stay optional here
+    pass
