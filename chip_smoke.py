@@ -224,6 +224,30 @@ Phases, each of which raises (exit code 1) on failure:
    RSA-sealed v2 frame; keygen, encrypt and decrypt ms. No flash kernel
    may launch.
 
+15. the host crypto and secure aggregation (``cryptography`` required).
+   (a) The native library built by g++ from
+   ``vantage6_tpu_torch/native/secureagg.cpp`` into ``build/native``
+   (no numpy fallback allowed); one flagship FedAvg-CNN round's station
+   deltas ``[32, 421642]`` (phase 13's round) pulled to the host, each
+   station's masked by ``native.mask_update`` under one fresh tag and
+   summed by ``native.unmask_sum``: within 32 x 0.5/scale of the card's
+   ``fed_sum``, the last station's upload equal bit for bit to the numpy
+   fallback's; ms per station (native and numpy) and the unmask ms. (b)
+   Phase 12's registry (32 stations of up to 65,536 patients, covariate
+   f0, host dicts of columns) in one ``Federation`` on the card: the
+   seeded, DH (adverts signed by the stations' RSA identities, whose 32
+   keygens are timed apart) and Bonawitz averages, and Bonawitz again
+   with station 7's upload swallowed by the ``drop`` fault; counts exact,
+   averages within 1e-3 of the float64 pooled mean, the dropout run
+   naming station 7 and averaging the survivors; wall ms of each. (c)
+   Rung 5: ``central_kaplan_meier_paillier`` under a 2048-bit key on a
+   yearly grid of 10 points (weeks 52-520; the full 519-week grid would
+   take ~33,000 encryptions): every aggregate ciphertext, the decrypted
+   counts equal to the plain partials' and numpy's, survival within
+   1e-12 of the float64 KM; encryptions/s and the task's wall ms. (d)
+   ``preprocess`` where pandas imports, else one line saying it was not
+   run. No flash kernel may launch.
+
 ``--profile`` traces one more round of each run of phases 4 and 9
 (torch.profiler) and reports device time by kernel group and under the
 ``attention_fwd``/``attention_bwd`` profiler ranges, one fused round of
@@ -234,9 +258,9 @@ launches, the host's costliest functions), and one call of
 ``fit_cox_device`` and ``fit_device`` of phase 12 (busy share, launches,
 the costliest kernels).
 
-Prints the card's name and power limit first, a ``{"kernels": [...]}`` line
-before the last, and ``{"ok": true, "device": {...}}`` as the last line.
-Without a CUDA device it exits 1 and prints no result. A copy of the
+Prints the card's name and power limit first and again before a
+``{"kernels": [...]}`` line, which comes before the last, and
+``{"ok": true, "device": {...}}`` as the last line. Without a CUDA device it exits 1 and prints no result. A copy of the
 results is written to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -2629,6 +2653,33 @@ def _profile_call(torch, fn, label, ms):
                 top=[dict(ms=m, count=n, name=k) for m, n, k in rows[:12]])
 
 
+def _registry(cfg, torch, dev):
+    """Phase 12's registry (module doc), drawn from ``cfg["seed"]``: the
+    generator (for later draws), per-station row counts, the ``[S, n]``
+    row mask and the padded covariates, event times, event flags and
+    logistic labels (zero past each station's count)."""
+    rng = np.random.default_rng(cfg["seed"])
+    n_s, n, p = cfg["stations"], cfg["rows"], cfg["features"]
+    counts, mask_np, _ = _ragged(rng, cfg, torch, dev)
+    keep = mask_np.astype(bool)
+    x = rng.standard_normal((n_s, n, p)).astype(np.float32)
+    x[~keep] = 0.0
+    beta_star = np.linspace(-0.5, 0.5, p)
+    rate = np.exp(x.astype(np.float64) @ beta_star) / cfg["hazard_scale"]
+    t_event = rng.exponential(1.0 / rate)
+    t_cens = rng.uniform(0.0, cfg["weeks"], size=(n_s, n))
+    time_ = np.ceil(np.minimum(np.minimum(t_event, t_cens),
+                               cfg["weeks"])).astype(np.float32)
+    event = (t_event <= t_cens).astype(np.float32)
+    w_star = rng.normal(size=p) * 0.3
+    prob = 1 / (1 + np.exp(-(x.astype(np.float64) @ w_star
+                             + cfg["logit_bias"])))
+    label = (rng.uniform(size=(n_s, n)) < prob).astype(np.float32)
+    for a in (time_, event, label):
+        a[~keep] = 0.0
+    return rng, counts, keep, x, time_, event, label
+
+
 def phase_workloads(fa, torch, dev, profile=False):
     """Phase 12: the parity ladder's tasks through ``Federation.create_task``
     at a registry's size, each held to a float64 numpy oracle (or to its
@@ -2645,7 +2696,6 @@ def phase_workloads(fa, torch, dev, profile=False):
     from vantage6_tpu_torch.workloads import survival as SV
 
     cfg = WORKLOADS
-    rng = np.random.default_rng(cfg["seed"])
     n_s, n, p = cfg["stations"], cfg["rows"], cfg["features"]
     res, failed = {}, []
     features = [f"f{j}" for j in range(p)]
@@ -2666,24 +2716,7 @@ def phase_workloads(fa, torch, dev, profile=False):
     fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
 
     # ------------------------------------------------------------- the data
-    counts, mask_np, _ = _ragged(rng, cfg, torch, dev)
-    keep = mask_np.astype(bool)
-    x = rng.standard_normal((n_s, n, p)).astype(np.float32)
-    x[~keep] = 0.0
-    beta_star = np.linspace(-0.5, 0.5, p)
-    rate = np.exp(x.astype(np.float64) @ beta_star) / cfg["hazard_scale"]
-    t_event = rng.exponential(1.0 / rate)
-    t_cens = rng.uniform(0.0, cfg["weeks"], size=(n_s, n))
-    time_ = np.ceil(np.minimum(np.minimum(t_event, t_cens),
-                               cfg["weeks"])).astype(np.float32)
-    event = (t_event <= t_cens).astype(np.float32)
-    w_star = rng.normal(size=p) * 0.3
-    prob = 1 / (1 + np.exp(-(x.astype(np.float64) @ w_star
-                             + cfg["logit_bias"])))
-    label = (rng.uniform(size=(n_s, n)) < prob).astype(np.float32)
-    for a in (time_, event, label):
-        a[~keep] = 0.0
-    del rate, t_event, t_cens, prob
+    rng, counts, keep, x, time_, event, label = _registry(cfg, torch, dev)
     tx, tt, te, ty = (torch.from_numpy(a).to(dev)
                       for a in (x, time_, event, label))
     tc = torch.from_numpy(counts.astype(np.float32)).to(dev)
@@ -4101,6 +4134,343 @@ def phase_ops(fa, torch, dev):
     return res
 
 
+CRYPTO = dict(mask_scale=2.0**16, paillier_bits=2048,
+              km_grid=list(range(52, 521, 52)), drop_station=7,
+              upload_timeout=30.0, workers=8, rate_encryptions=16,
+              preprocess_rows=4096, seed=15)
+SECURE_AVG_ATOL = 1e-3  # the reference tests' tolerance for the averages
+KM_SURV_ATOL = 1e-12    # the Paillier KM against the float64 plain KM
+
+
+def _flagship_deltas(torch, dev):
+    """One flagship FedAvg-CNN round's station deltas, flattened to
+    ``[32, 421642]`` f32 on the card (phase 13's round: phase 6's data,
+    ``init_params(1)``, the batch indices of ``Generator(2)``)."""
+    from vantage6_tpu_torch.core.mesh import FederationMesh
+    from vantage6_tpu_torch.fed.fedavg import local_sgd
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    fcfg = FEDAVG
+    mesh = FederationMesh(fcfg["stations"], device=dev)
+    eng = W.make_engine(mesh, local_steps=fcfg["local_steps"],
+                        batch_size=fcfg["batch"], local_lr=fcfg["lr"])
+    sx, sy, counts = W.make_federated_data(
+        fcfg["stations"], n_per_station=fcfg["per_station"],
+        alpha=fcfg["alpha"], seed=0, mesh=mesh, noise=fcfg["noise"])
+    params0 = W.init_params(1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    idx = eng.draw_batch_indices(counts, gen)[0]
+    with torch.no_grad():
+        deltas, _ = mesh.fed_map(
+            lambda x, y, i, p: local_sgd(W.weighted_ce_loss, x, y, i, p,
+                                         fcfg["lr"]),
+            sx, sy, idx, replicated_args=(params0,), batched=True)
+    return torch.cat([d.reshape(fcfg["stations"], -1)
+                      for d in _leaves(deltas)], dim=1)
+
+
+def _crypto_native(torch, dev):
+    """(a) The native ChaCha20 masks over one flagship round's deltas."""
+    import secrets
+
+    from vantage6_tpu_torch import native
+    from vantage6_tpu_torch.fed.collectives import fed_sum
+
+    cache = os.path.join(HERE, "build", "native")
+    os.environ["V6T_NATIVE_CACHE"] = cache
+    so = os.path.join(cache, native.LIB_NAME)
+    existed = os.path.exists(so)
+    native.lib.cache_clear()
+    t0 = time.perf_counter()
+    available = native.native_available()
+    build_s = time.perf_counter() - t0
+    check(available, "the native secure-aggregation library did not build "
+                     "(g++ missing or failing); the smoke allows no numpy "
+                     "fallback")
+    lib_path = native.lib()._name
+    check(os.path.samefile(lib_path, so), f"native library at {lib_path}")
+    print(f"crypto native: {'loaded' if existed else 'built'} {lib_path} "
+          f"from vantage6_tpu_torch/native/secureagg.cpp in {build_s:.3f} s")
+
+    flat = _flagship_deltas(torch, dev)
+    n_s, n_flat = flat.shape
+    summed = fed_sum(flat).cpu().numpy()
+    host = flat.cpu().numpy()
+    del flat
+    scale = CRYPTO["mask_scale"]
+    peak = float(np.abs(host).max())
+    check(n_s * peak * scale < 2.0**31,
+          f"deltas up to {peak} overflow int32 at scale {scale}")
+    seed = secrets.token_bytes(32)
+    tag = secrets.token_hex(16)
+    t0 = time.perf_counter()
+    uploads = np.stack([native.mask_update(seed, s, n_s, host[s], scale,
+                                           tag=tag) for s in range(n_s)])
+    mask_ms = 1e3 * (time.perf_counter() - t0) / n_s
+    t0 = time.perf_counter()
+    total = native.unmask_sum(uploads, scale)
+    unmask_ms = 1e3 * (time.perf_counter() - t0)
+    err = float(np.abs(total - summed).max())
+    tol = n_s * 0.5 / scale
+    # one station through the numpy fallback: the same upload, bit for bit
+    k = n_s - 1
+    os.environ["V6T_DISABLE_NATIVE"] = "1"
+    native.lib.cache_clear()
+    try:
+        check(not native.native_available(), "V6T_DISABLE_NATIVE ignored")
+        t0 = time.perf_counter()
+        fallback = native.mask_update(seed, k, n_s, host[k], scale, tag=tag)
+        fallback_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        del os.environ["V6T_DISABLE_NATIVE"]
+        native.lib.cache_clear()
+    check(native.native_available(), "native library lost after fallback")
+    same = bool(np.array_equal(fallback, uploads[k]))
+    masked = float(np.mean(uploads[0] == native.quantize(host[0], scale)))
+    res = dict(library=lib_path, built=not existed, build_s=build_s,
+               shape=[n_s, n_flat], scale=scale, peak_abs=peak,
+               max_abs_err=err, tol=tol, fallback_bit_identical=same,
+               plaintext_share_of_upload=masked,
+               mask_ms_per_station=mask_ms,
+               fallback_ms_per_station=fallback_ms, unmask_ms=unmask_ms)
+    print(f"gate crypto native: unmask_sum of {n_s} masked [{n_flat}] "
+          f"deltas vs the card's fed_sum max_abs_err {err:.3e} (tol {tol:.3e}"
+          f" = {n_s} x 0.5/scale); station {k}'s upload native == numpy "
+          f"fallback {same}; mask_update {mask_ms:.3f} ms per station native,"
+          f" {fallback_ms:.3f} ms numpy; unmask_sum {unmask_ms:.3f} ms")
+    check(err <= tol, f"native masked sum off fed_sum by {err}")
+    check(same, "the native upload differs from the numpy fallback")
+    check(masked < 0.01, f"upload equals its plaintext at {masked}")
+    return res
+
+
+def _crypto_secure_averages(fed, f0):
+    """(b) The seeded, DH and Bonawitz averages through ``fed`` (32
+    stations), and Bonawitz with one upload dropped."""
+    import secrets
+
+    from vantage6_tpu_torch.common.encryption import RSACryptor
+    from vantage6_tpu_torch.common.faults import FAULTS
+
+    res = {}
+    n_s = fed.n_stations
+
+    def run(method, **kwargs):
+        t0 = time.perf_counter()
+        task = fed.create_task("sa", {"method": method, "kwargs": dict(
+            column="f0", **kwargs)}, organizations=[0])
+        (out,) = fed.wait_for_results(task.id)
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def gate(name, out, ms, keep, dropped=()):
+        pooled = np.concatenate([f0[i] for i in keep])
+        err = abs(out["average"] - float(pooled.mean()))
+        exact = out["count"] == pooled.size
+        res[name] = dict(average=out["average"], count=out["count"],
+                         ref_average=float(pooled.mean()), abs_err=err,
+                         tol=SECURE_AVG_ATOL, count_exact=exact, ms=ms,
+                         dropped=out.get("dropped"))
+        print(f"gate crypto {name}: count {out['count']} == {pooled.size} "
+              f"{exact}; average {out['average']:.9f} vs float64 "
+              f"{float(pooled.mean()):.9f} abs_err {err:.3e} (tol "
+              f"{SECURE_AVG_ATOL}); dropped {out.get('dropped')}; "
+              f"{ms:.1f} ms")
+        check(exact, f"{name} count {out['count']} != {pooled.size}")
+        check(err <= SECURE_AVG_ATOL, f"{name} average off by {err}")
+        if "dropped" in out:
+            check(out["dropped"] == sorted(dropped),
+                  f"{name} dropped {out['dropped']}, expected {dropped}")
+
+    everyone = list(range(n_s))
+    out, ms = run("central_secure_average", seed_hex=secrets.token_hex(32))
+    gate("seeded", out, ms, everyone)
+    # the 32 RSA identity keygens, apart from the DH run
+    t0 = time.perf_counter()
+    registry = fed._org_identity_registry()
+    keygen_ms = 1e3 * (time.perf_counter() - t0)
+    check(len(registry) == n_s, "identity registry incomplete")
+    res["identity_keygens"] = dict(n=n_s, bits=RSACryptor.KEY_BITS,
+                                   ms=keygen_ms)
+    print(f"crypto identities: {n_s} {RSACryptor.KEY_BITS}-bit RSA keygens "
+          f"{keygen_ms:.1f} ms")
+    first = max(fed.tasks) + 1
+    out, ms = run("central_secure_average_dh")
+    adverts = [r.result for t in fed.tasks.values() if t.id >= first
+               and t.method == "partial_advertise_mask_key" for r in t.runs]
+    signed = len(adverts) == n_s and all(a.get("signature")
+                                         for a in adverts)
+    print(f"gate crypto dh: {len(adverts)} adverts, all signed {signed}")
+    check(signed, "DH adverts unsigned")
+    gate("dh", out, ms, everyone)
+    out, ms = run("central_secure_average_bonawitz",
+                  upload_timeout=CRYPTO["upload_timeout"],
+                  poll_interval=0.01)
+    gate("bonawitz", out, ms, everyone)
+    k = CRYPTO["drop_station"]
+    # station k's runs: advertise, share, then the upload, which is dropped
+    FAULTS.configure(f"drop:station={k},after=2,limit=1")
+    try:
+        out, ms = run("central_secure_average_bonawitz",
+                      upload_timeout=CRYPTO["upload_timeout"],
+                      poll_interval=0.01)
+    finally:
+        FAULTS.clear()
+    gate("bonawitz_dropout", out, ms, [s for s in everyone if s != k], [k])
+    return res
+
+
+def _crypto_paillier_km(fed, time_, event):
+    """(c) Rung 5: Kaplan-Meier under Paillier across the 32 stations."""
+    from vantage6_tpu_torch.common import paillier
+    from vantage6_tpu_torch.workloads import survival as SV
+
+    grid = [float(g) for g in CRYPTO["km_grid"]]
+    t0 = time.perf_counter()
+    pk, sk = paillier.keygen(bits=CRYPTO["paillier_bits"])
+    keygen_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for m in range(CRYPTO["rate_encryptions"]):
+        pk.encrypt(m)
+    enc_per_s = CRYPTO["rate_encryptions"] / (time.perf_counter() - t0)
+    n_enc = 2 * len(grid) * fed.n_stations
+    t0 = time.perf_counter()
+    task = fed.create_task("survival", {
+        "method": "central_kaplan_meier_paillier",
+        "kwargs": {"time_col": "time", "event_col": "event", "grid": grid,
+                   "public_key_n": hex(pk.n)}}, organizations=[0])
+    (out,) = fed.wait_for_results(task.id)
+    task_ms = 1e3 * (time.perf_counter() - t0)
+    cts = out["events_ct"] + out["at_risk_ct"]
+    ciphertext = (len(cts) == 2 * len(grid)
+                  and all(isinstance(c, str) and c.startswith("0x")
+                          and pk.n <= int(c, 16) < pk.n_sq for c in cts))
+    t0 = time.perf_counter()
+    km = SV.decrypt_km(sk, out)
+    decrypt_ms = 1e3 * (time.perf_counter() - t0)
+    # the plain KM on the same grid: the plain partials through the task
+    # plane, and the pooled float64 numpy counts
+    task = fed.create_task("survival", {
+        "method": "partial_km_counts",
+        "kwargs": {"time_col": "time", "event_col": "event",
+                   "grid": grid}})
+    parts = fed.wait_for_results(task.id)
+    events = np.sum([r["events"] for r in parts], axis=0)
+    at_risk = np.sum([r["at_risk"] for r in parts], axis=0)
+    pt, pe = np.concatenate(time_), np.concatenate(event)
+    g = np.asarray(grid)
+    events_np = ((pt[None, :] == g[:, None]) * pe[None, :]).sum(1)
+    at_risk_np = (pt[None, :] >= g[:, None]).sum(1).astype(np.float64)
+    surv_ref = np.cumprod(1.0 - events_np / np.maximum(at_risk_np, 1.0))
+    exact = (km["events"] == events.tolist() == events_np.tolist()
+             and km["at_risk"] == at_risk.tolist() == at_risk_np.tolist())
+    err = float(np.abs(np.asarray(km["survival"]) - surv_ref).max())
+    res = dict(bits=CRYPTO["paillier_bits"], grid=grid,
+               stations=fed.n_stations, encryptions=n_enc, keygen_ms=keygen_ms,
+               encryptions_per_s=enc_per_s,
+               task_encryptions_per_s=n_enc / (task_ms / 1e3),
+               task_ms=task_ms, decrypt_ms=decrypt_ms,
+               all_ciphertext=ciphertext, counts_exact=exact,
+               survival_max_abs_err=err, survival_tol=KM_SURV_ATOL,
+               events=km["events"], at_risk=km["at_risk"],
+               survival=km["survival"])
+    print(f"gate crypto paillier km: {fed.n_stations} stations, grid "
+          f"{len(grid)} (weeks {int(grid[0])}-{int(grid[-1])}), "
+          f"{CRYPTO['paillier_bits']}-bit key ({keygen_ms:.1f} ms keygen); "
+          f"every aggregate ciphertext {ciphertext}; decrypted counts == "
+          f"plain partials' == numpy {exact}; survival vs float64 max_abs_err "
+          f"{err:.3e} (tol {KM_SURV_ATOL}); task {task_ms:.1f} ms for "
+          f"{n_enc} encryptions ({n_enc / (task_ms / 1e3):.2f}/s), "
+          f"{enc_per_s:.2f} encryptions/s alone, decrypt_km "
+          f"{decrypt_ms:.1f} ms")
+    check(ciphertext, "a Paillier aggregate is not ciphertext")
+    check(exact, "Paillier KM counts differ from the plain KM's")
+    check(err <= KM_SURV_ATOL, f"Paillier KM survival off by {err}")
+    return res
+
+
+def _crypto_preprocess(dev):
+    """(d) ``preprocess`` where pandas imports."""
+    import importlib
+
+    try:
+        importlib.import_module("pandas")
+    except ImportError:
+        print("crypto preprocess: pandas is not installed here, so "
+              "preprocess was not run")
+        return {"run": False, "reason": "pandas is not installed"}
+    from vantage6_tpu_torch.runtime.federation import federation_from_datasets
+    from vantage6_tpu_torch.workloads import preprocess
+
+    rng = np.random.default_rng(CRYPTO["seed"])
+    n = CRYPTO["preprocess_rows"]
+    cols = {"age": rng.uniform(18, 90, n),
+            "weight_kg": rng.uniform(45, 120, n),
+            "height_m": rng.uniform(1.45, 2.0, n)}
+    steps = [{"op": "filter", "column": "age", "cmp": "ge", "value": 40},
+             {"op": "derive", "column": "bmi",
+              "expr": {"op": "div", "args": ["weight_kg", "height_m"]}},
+             {"op": "select", "columns": ["age", "bmi"]}]
+    fed = federation_from_datasets([cols], {"pre": preprocess}, device=dev,
+                                   executor_workers=0)
+    try:
+        task = fed.create_task("pre", {"method": "preprocess",
+                                       "kwargs": {"steps": steps}})
+        (out,) = fed.wait_for_results(task.id)
+    finally:
+        fed.close()
+    keep = cols["age"] >= 40
+    ok = (list(out.columns) == ["age", "bmi"] and len(out) == keep.sum()
+          and np.array_equal(out["bmi"].to_numpy(),
+                             cols["weight_kg"][keep] / cols["height_m"][keep]))
+    print(f"crypto preprocess: {len(out)} of {n} rows, columns "
+          f"{list(out.columns)}, equal to numpy {ok}")
+    check(ok, "preprocess result differs from numpy")
+    return {"run": True, "rows": int(len(out)), "equal": ok}
+
+
+def phase_crypto(fa, torch, dev):
+    """Phase 15 (module doc): the host crypto and secure aggregation."""
+    import gc
+
+    from vantage6_tpu_torch.runtime.federation import federation_from_datasets
+    from vantage6_tpu_torch.workloads import secure_average
+    from vantage6_tpu_torch.workloads import survival as SV
+
+    check(optional_packages()["cryptography"],
+          "phase 15 needs cryptography (X25519, RSA identities)")
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    gc.collect()
+    t_phase = time.perf_counter()
+    res = {"native": _crypto_native(torch, dev)}
+    _, counts, keep, x, time_, event, _ = _registry(WORKLOADS, torch, dev)
+    f0 = [x[i, :c, 0].astype(np.float64) for i, c in enumerate(counts)]
+    times = [time_[i, :c].astype(np.float64) for i, c in enumerate(counts)]
+    events = [event[i, :c].astype(np.float64) for i, c in enumerate(counts)]
+    del x, time_, event, keep
+    print(f"crypto registry: {len(counts)} stations, {int(counts.sum())} "
+          f"patients (ragged up to {WORKLOADS['rows']}), column f0")
+    fed = federation_from_datasets(
+        [{"f0": a, "time": t, "event": e} for a, t, e in zip(f0, times,
+                                                              events)],
+        {"sa": secure_average, "survival": SV}, device=dev,
+        executor_workers=CRYPTO["workers"])
+    try:
+        res["secure_average"] = _crypto_secure_averages(fed, f0)
+        res["paillier_km"] = _crypto_paillier_km(fed, times, events)
+    finally:
+        fed.close()
+    res["preprocess"] = _crypto_preprocess(dev)
+    res["seconds"] = time.perf_counter() - t_phase
+    launches = dict(fa.flash_forward_cuda.variant_launches)
+    res["launches"] = launches
+    print(f"crypto flash launches: {launches} (0 expected: host crypto); "
+          f"phase {res['seconds']:.1f} s")
+    check(sum(launches.values()) == 0,
+          f"phase 15 launched a flash kernel: {launches}")
+    return res
+
+
 def _leaves(tree):
     from vantage6_tpu_torch._tree import tree_leaves
 
@@ -4187,6 +4557,7 @@ def main(argv: list[str]) -> int:
     distributed = phase_distributed(fa, torch, dev)
     print(json.dumps({"optional_packages": optional_packages()}))
     ops = phase_ops(fa, torch, dev)
+    crypto = phase_crypto(fa, torch, dev)
     print(f"fedavg-cnn: {fedavg['fused_ms_per_round']:.3f} ms/round fused "
           f"({fedavg['rounds_per_s']:.1f} rounds/s), "
           f"{fedavg['eager_ms_per_round']:.3f} ms/round eager, "
@@ -4263,6 +4634,17 @@ def main(argv: list[str]) -> int:
           f"ms/round poisoned/masked, peak {fl['peak_mem_gb']:.3f} GB; "
           f"watchdog evaluate {ops['watchdog']['evaluate_ms']:.3f} ms; fleet "
           f"push {np.median(ops['fleet']['ms_per_push']):.3f} ms on {card}")
+    cn, ca, ck = (crypto["native"], crypto["secure_average"],
+                  crypto["paillier_km"])
+    print(f"crypto: native mask_update {cn['mask_ms_per_station']:.3f} ms per "
+          f"station ({cn['fallback_ms_per_station']:.3f} ms numpy), "
+          f"unmask_sum {cn['unmask_ms']:.3f} ms over {cn['shape']}; "
+          + ", ".join(f"{k} {ca[k]['ms']:.1f} ms" for k in (
+              "seeded", "dh", "bonawitz", "bonawitz_dropout"))
+          + f" (32 RSA keygens {ca['identity_keygens']['ms']:.1f} ms apart); "
+          f"Paillier KM {ck['task_ms']:.1f} ms, "
+          f"{ck['encryptions_per_s']:.2f} encryptions/s; phase "
+          f"{crypto['seconds']:.1f} s on {card}")
 
     # each kernel at the shape and dtype it serves: the tensor-core kernels
     # at the main path's head dim 128, the CUDA-core one in bf16 at head
@@ -4287,6 +4669,7 @@ def main(argv: list[str]) -> int:
         launches_workloads=workloads["launches"][variant],
         launches_distributed=distributed["launches"][variant],
         launches_ops=ops["launches"][variant],
+        launches_crypto=crypto["launches"][variant],
         **{key: times[case][variant][key] for key in (
             "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
@@ -4298,7 +4681,7 @@ def main(argv: list[str]) -> int:
                   fedavg=fedavg, compression=compression, analysis=analysis,
                   task_plane=task_plane, planes=planes,
                   workloads=workloads, distributed=distributed, ops=ops,
-                  kernels=kernels,
+                  crypto=crypto, kernels=kernels,
                   times=times, profile=prof,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(HERE, "chiprun_out")
@@ -4311,7 +4694,10 @@ def main(argv: list[str]) -> int:
                       "compression": compression, "analysis": analysis,
                       "task_plane": task_plane, "planes": planes,
                       "workloads": workloads, "distributed": distributed,
-                      "ops": ops}, default=str))
+                      "ops": ops, "crypto": crypto}, default=str))
+    # the card again, near the end: a long results line above can push the
+    # first one out of a truncated capture of the output
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,8 +1,8 @@
 """Columns of a station's frame as numpy arrays, without pandas.
 
 A station's host data is any mapping of column name to a 1-D array: a
-pandas DataFrame is one, a dict of numpy arrays another (the card's
-machine has no pandas). The JAX package's host partials call DataFrame
+pandas DataFrame is one, a dict of numpy arrays another (pandas need
+not be installed where the port runs). The JAX package's host partials call DataFrame
 methods (``df[cols].to_numpy()``, ``.dropna()``); the port's go through
 these helpers, which give the same arrays for both kinds of frame.
 """

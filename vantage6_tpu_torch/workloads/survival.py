@@ -17,10 +17,10 @@ Math (Breslow ties):
   H = -sum_k d_k [ S2_k/S0_k - (S1_k/S0_k)(S1_k/S0_k)^T ],
   with s_k = sum of covariates of events at t_k. Newton: beta -= H^{-1} g.
 
-Counterpart of ``vantage6_tpu/workloads/survival.py`` without its Paillier
-KM (``partial_km_counts_paillier``, ``central_kaplan_meier_paillier``,
-``decrypt_km``), which is host big-integer crypto (ROADMAP.md item 11).
-The risk-set sums are products against the ``[K, n]`` at-risk weights, so
+Counterpart of ``vantage6_tpu/workloads/survival.py``, its Paillier KM
+(``partial_km_counts_paillier``, ``central_kaplan_meier_paillier``,
+``decrypt_km``: host big-integer crypto through the port's
+``common/paillier.py``) included. The risk-set sums are products against the ``[K, n]`` at-risk weights, so
 the ``[K, n, d]`` einsum intermediate of S2 is never built: S2 is one
 product with the rows' outer products ``[n, d*d]``. Host partials that
 compute with tensors take a port-only ``device=`` (the JAX ones compute on
@@ -293,3 +293,115 @@ def central_cox(client: Any, feature_cols: list[str], time_col: str,
         beta = new_beta.cpu().numpy()
     return {"beta": beta.tolist(), "event_times": grid,
             "grad_norm": float(torch.linalg.norm(grad))}
+
+
+# ===================================== Kaplan-Meier under Paillier encryption
+# The classical untrusted-server secure-sum (BASELINE.md ladder item 5;
+# common.paillier): the RESEARCHER generates the keypair and puts only the
+# public key in the task input; every station encrypts its per-grid
+# (events, at-risk) counts; the central step adds CIPHERTEXTS
+# homomorphically and returns the still-encrypted aggregate. Neither the
+# central node, the server, nor the relay ever see any count — only the
+# researcher, holding the private key, decrypts the pooled curve
+# (`decrypt_km` below, run client-side).
+
+
+@data(1)
+def partial_km_counts_paillier(
+    df: Any,
+    time_col: str,
+    event_col: str,
+    grid: list[float],
+    public_key_n: str,
+) -> dict[str, Any]:
+    """This station's KM counts, Paillier-encrypted under the researcher's
+    public key (hex modulus). Ciphertexts travel as hex strings (python
+    bigints; JSON-safe)."""
+    from vantage6_tpu_torch.common import paillier
+
+    pk = paillier.PublicKey(int(public_key_n, 16))
+    # the COUNTING rule lives in one place: the plain KM partial
+    counts = partial_km_counts.plain(df, time_col, event_col, grid)
+    return {
+        "events_ct": [
+            hex(pk.encrypt(int(v))) for v in counts["events"].astype(int)
+        ],
+        "at_risk_ct": [
+            hex(pk.encrypt(int(v))) for v in counts["at_risk"].astype(int)
+        ],
+    }
+
+
+@algorithm_client
+def central_kaplan_meier_paillier(
+    client: Any,
+    time_col: str,
+    event_col: str,
+    grid: list[float],
+    public_key_n: str,
+    organizations: list[int] | None = None,
+) -> dict[str, Any]:
+    """Homomorphic aggregation: the central step sums CIPHERTEXTS and
+    returns the encrypted pooled counts — it cannot read them."""
+    from vantage6_tpu_torch.common import paillier
+
+    pk = paillier.PublicKey(int(public_key_n, 16))
+    orgs = organizations or [o["id"] for o in client.organization.list()]
+    task = client.task.create(
+        input_={
+            "method": "partial_km_counts_paillier",
+            "kwargs": {
+                "time_col": time_col,
+                "event_col": event_col,
+                "grid": grid,
+                "public_key_n": public_key_n,
+            },
+        },
+        organizations=orgs,
+        name="km_paillier_partial",
+    )
+    parts = client.wait_for_results(task_id=task["id"])
+    events_ct = [int(c, 16) for c in parts[0]["events_ct"]]
+    at_risk_ct = [int(c, 16) for c in parts[0]["at_risk_ct"]]
+    for part in parts[1:]:
+        events_ct = pk.add_vectors(
+            events_ct, [int(c, 16) for c in part["events_ct"]]
+        )
+        at_risk_ct = pk.add_vectors(
+            at_risk_ct, [int(c, 16) for c in part["at_risk_ct"]]
+        )
+    return {
+        "events_ct": [hex(c) for c in events_ct],
+        "at_risk_ct": [hex(c) for c in at_risk_ct],
+        "grid": [float(v) for v in grid],
+        "n_parties": len(orgs),
+    }
+
+
+def decrypt_km(private_key: Any, result: dict[str, Any]) -> dict[str, Any]:
+    """RESEARCHER-side: decrypt the pooled counts and build the KM curve.
+
+    ``private_key`` is the common.paillier.PrivateKey whose public half the
+    task carried; never send it anywhere.
+    """
+    events = np.asarray(
+        private_key.decrypt_vector(
+            int(c, 16) for c in result["events_ct"]
+        ),
+        np.float64,
+    )
+    at_risk = np.asarray(
+        private_key.decrypt_vector(
+            int(c, 16) for c in result["at_risk_ct"]
+        ),
+        np.float64,
+    )
+    surv = np.cumprod(
+        1.0 - np.divide(events, np.maximum(at_risk, 1.0))
+    )
+    return {
+        "grid": result["grid"],
+        "events": events.tolist(),
+        "at_risk": at_risk.tolist(),
+        "survival": surv.tolist(),
+    }
