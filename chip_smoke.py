@@ -212,10 +212,12 @@ Phases, each of which raises (exit code 1) on failure:
    poisoned run and equal bit for bit to a run with the same mask by
    hand, no new graph is captured, and the mask reverts; detection
    latency, fused ms/round poisoned and masked, peak memory. (e) A
-   phase-10-shaped Federation pushing to an in-process recorder
-   (``attach_fleet_push``, interval 0) through ``central_fedavg`` for 3
-   rounds: one push per round boundary, each decoding to its
-   ``build_snapshot``, each carrying ``v6t_device_*``; ms per push. (d)
+   phase-10-shaped Federation pushing over HTTP to a port ``ServerApp``'s
+   ``/api/telemetry`` (``attach_fleet_push``, interval 0) through
+   ``central_fedavg`` for 3 rounds: one push per round boundary, each
+   decoding to its ``build_snapshot``, each carrying ``v6t_device_*``, and
+   each read back from ``/api/fleet`` (the source's seq and series count);
+   ms per push. (d)
    With that Federation open, one ``WATCHDOG.evaluate()`` over the
    learning, device-plane and Federation feeds: no feed error; its ms and
    the health verdict. (f) Where ``cryptography`` imports: a run's
@@ -247,6 +249,33 @@ Phases, each of which raises (exit code 1) on failure:
    1e-12 of the float64 KM; encryptions/s and the task's wall ms. (d)
    ``preprocess`` where pandas imports, else one line saying it was not
    run. No flash kernel may launch.
+
+16. the REST stack on the card: a port ``ServerApp`` on a real socket, a
+   port ``UserClient`` and port ``NodeDaemon``s as threads of this
+   process. (a) The reference's control-plane leg as it stands
+   (``bench.py:114-116, 1127-1288``): 8 inline daemons, each on a CSV of
+   32 ages, 40 ``partial_average`` tasks of width 2 submitted back to back,
+   once per-run + polled and once batched + pushed, each arm on a fresh
+   server; every task completed with exactly one run per targeted
+   organization, the arms' results identical and each task's mean equal
+   to numpy's (1e-12); task and dispatch p50/p95, tasks/s, REST calls per
+   task. (b) Phase 13's station (65,536 patients x 16 covariates) as a CSV
+   behind a daemon with ``device_engine={}`` (the card): ``engine="device"``
+   tasks of ``device_column_stats`` and ``device_logistic_fit`` in its three
+   ``agg_mode``s with phase 13's parameters, each result equal bit for bit
+   to the same call made directly on the card, submit->result ms beside
+   the direct call's (medians of 3, in turns), and a ``POST
+   /api/debug/profile`` window around one task holding CUDA kernel events.
+   (c) Phase 12's registry (covariate f0, 1,817,882 patients at seed 12)
+   behind 32 inline daemons: ``central_average`` researcher -> node A ->
+   proxy -> 32 runs -> aggregate, its count exact and its average within
+   1e-14 of the in-process ``Federation``'s and 1e-12 of numpy's; wall ms
+   of both. (d) One ``partial_average`` through a sandbox-mode daemon: a
+   child process with the card hidden and ``jax`` shadowed by a package
+   that records any import; the child's wall ms. (e) ``/api/health`` ok,
+   ``/api/metrics`` with the server's series and ``v6t_device_*``, and
+   each daemon of (b)-(d) read back from ``/api/fleet`` (each pushes every
+   0.5 s). No flash kernel may launch.
 
 ``--profile`` traces one more round of each run of phases 4 and 9
 (torch.profiler) and reports device time by kernel group and under the
@@ -3917,18 +3946,22 @@ def _ops_flagship_loop(torch, dev):
 
 
 def _ops_fleet(torch, dev):
-    """(e) A phase-10-shaped Federation pushing its fleet snapshot to an
-    in-process recorder through ``central_fedavg``. The push interval is
-    set to 0, so that every round boundary pushes. Returns the Federation,
-    open, for (d)."""
+    """(e) A phase-10-shaped Federation pushing its fleet snapshot over HTTP
+    to a port ``ServerApp``'s ``/api/telemetry`` through
+    ``central_fedavg``; after each push ``/api/fleet`` reads the source
+    back. The push interval is set to 0, so that every round boundary
+    pushes. Returns the Federation, open, for (d)."""
+    from vantage6_tpu_torch.client import UserClient
     from vantage6_tpu_torch.common import fleet
     from vantage6_tpu_torch.core.config import FederationConfig
     from vantage6_tpu_torch.runtime import profiling  # noqa: F401 (series)
     from vantage6_tpu_torch.runtime.federation import Federation
+    from vantage6_tpu_torch.server.app import ServerApp
     from vantage6_tpu_torch.workloads import fedavg_mnist as W
 
     cfg, k = FEDAVG, OPS["fleet_rounds"]
     n_s = cfg["stations"]
+    source = "federation:chip-smoke"
     failed = []
 
     def gate(ok, msg):
@@ -3959,13 +3992,24 @@ def _ops_fleet(torch, dev):
         built.append((t0, snap))
         return snap
 
-    def recorder(method, endpoint, json_body=None, **kw):
-        pushed.append((time.perf_counter(), method, endpoint, json_body))
+    srv = ServerApp()
+    srv.ensure_root(password="rootpass123")
+    http = srv.serve(port=0, background=True)
+    client = UserClient(http.url)
+    client.authenticate("root", "rootpass123")
+
+    def request(method, endpoint, json_body=None, **kw):
+        answer = client.request(method, endpoint, json_body, **kw)
+        t1 = time.perf_counter()
+        view = client.request("GET", "fleet")
+        mine = [r for r in view["sources"] if r["source"] == source]
+        pushed.append((t1, method, endpoint, json_body, answer,
+                       mine[0] if mine else None))
+        return answer
 
     fleet.build_snapshot = recording_build
     try:
-        pusher = fed.attach_fleet_push(recorder,
-                                       source="federation:chip-smoke")
+        pusher = fed.attach_fleet_push(request, source=source)
         pusher.interval = 0.0
         task = fed.create_task("fedavg", {
             "method": "central_fedavg",
@@ -3976,27 +4020,40 @@ def _ops_fleet(torch, dev):
         torch.cuda.synchronize()
     finally:
         fleet.build_snapshot = build_snapshot
-    decoded = [fleet.decode_push(body) for _, _, _, body in pushed]
+        http.stop()
+        srv.close()
+    decoded = [fleet.decode_push(p[3]) for p in pushed]
     ms = [1e3 * (p[0] - b[0]) for p, b in zip(pushed, built)]
     device_series = [sorted(n for n in d["metrics"]
                             if n.startswith("v6t_device_")) for d in decoded]
+    names: set = set()
+    read_back = []
+    for d, p in zip(decoded, pushed):
+        names |= set(d["metrics"])
+        row = p[5]
+        read_back.append(row is not None and row["seq"] == d["seq"]
+                         and row["series"] == len(names)
+                         and p[4]["accepted"]
+                         and p[4]["metrics"] == len(d["metrics"]))
     res = dict(rounds=k, boundaries=k + 1, pushes=len(pushed),
                seqs=[d["seq"] for d in decoded], ms_per_push=ms,
                device_series=device_series[0] if device_series else [],
                metrics_per_push=[len(d["metrics"]) for d in decoded],
                notes_per_push=[len(d["notes"]) for d in decoded],
-               losses=out["losses"])
-    print(f"ops fleet: {len(pushed)} pushes over {k} central_fedavg rounds "
-          f"({k + 1} round boundaries), seqs {res['seqs']}, "
-          f"{res['metrics_per_push']} series, ms per push "
-          f"{[round(m, 3) for m in ms]}; device series "
+               read_back=read_back, losses=out["losses"])
+    print(f"ops fleet: {len(pushed)} pushes to /api/telemetry over HTTP "
+          f"over {k} central_fedavg rounds ({k + 1} round boundaries), seqs "
+          f"{res['seqs']}, {res['metrics_per_push']} series, ms per push "
+          f"(snapshot to answer) {[round(m, 3) for m in ms]}; read back "
+          f"from /api/fleet {read_back}; device series "
           f"{res['device_series']}")
     gate(len(pushed) == k + 1 and len(built) == k + 1,
          f"{len(pushed)} pushes for {k + 1} round boundaries")
-    gate(all(m == "post" and e == "telemetry" for _, m, e, _ in pushed),
+    gate(all(p[1] == "post" and p[2] == "telemetry" for p in pushed),
          "a push did not POST to telemetry")
     gate(all(d == b[1] for d, b in zip(decoded, built)),
          "a decoded push differs from its build_snapshot")
+    gate(all(read_back), f"/api/fleet did not read a push back: {read_back}")
     gate(all("v6t_device_mem_bytes_in_use" in s for s in device_series),
          "a push lacks the device observatory's series")
     if failed:
@@ -4471,6 +4528,477 @@ def phase_crypto(fa, torch, dev):
     return res
 
 
+# phase 16: the reference's control-plane leg (bench.py:114-116,
+# 1127-1288), phase 13's station through the daemon's device engine, and
+# phase 12's registry behind 32 daemons
+CONTROL = dict(daemons=8, tasks=40, width=2, rows=32, seed=7, turns=3,
+               profile_seconds=4.0, fleet_push_interval=0.5,
+               sandbox_rows=4096)
+FANOUT_FED_RTOL = 1e-14    # REST vs in-process central_average: float64
+FANOUT_NUMPY_RTOL = 1e-12  # ... and against numpy's float64 mean
+CP_PASSWORD = "rootpass123"
+
+
+class _ControlStack:
+    """A port ``ServerApp`` on a real socket, a root ``UserClient``, and
+    the inline daemons added to it (each on its own CSV, in a
+    collaboration of its own)."""
+
+    def __init__(self, client_event_push: bool = True):
+        from vantage6_tpu_torch.client import UserClient
+        from vantage6_tpu_torch.server.app import ServerApp
+
+        self.srv = ServerApp()
+        self.srv.ensure_root(password=CP_PASSWORD)
+        self.http = self.srv.serve(port=0, background=True)
+        self.client = UserClient(self.http.url)
+        if not client_event_push:
+            self.client._event_push = False  # pin the fixed-interval poll
+        self.client.authenticate("root", CP_PASSWORD)
+        self.daemons = []
+        self.names = []
+
+    def collaboration(self, name, csvs, algorithms, **daemon_kw):
+        """Organizations ``{name}{i}``, one per CSV, in one collaboration,
+        each with an inline daemon started on its CSV. Returns (collab,
+        orgs, daemons)."""
+        from vantage6_tpu_torch.node.daemon import NodeDaemon
+
+        c = self.client
+        orgs = [c.organization.create(name=f"{name}{i:02d}")
+                for i in range(len(csvs))]
+        collab = c.collaboration.create(
+            name=name, organization_ids=[o["id"] for o in orgs])
+        daemons = []
+        for org, csv in zip(orgs, csvs):
+            key = c.node.create(organization_id=org["id"],
+                                collaboration_id=collab["id"])["api_key"]
+            kw = dict(mode="inline", poll_interval=0.25)
+            kw.update(daemon_kw)
+            d = NodeDaemon(api_url=self.http.url, api_key=key,
+                           algorithms=algorithms,
+                           databases=[{"label": "default", "type": "csv",
+                                       "uri": csv}], **kw)
+            d.start()
+            daemons.append(d)
+            self.daemons.append(d)
+            self.names.append(d.name)
+        return collab, orgs, daemons
+
+    def stop_daemons(self, daemons, fleet_timeout: float = 10.0):
+        """Stop ``daemons``, once ``/api/fleet`` lists a push of each (the
+        sync worker pushes every ``fleet_push_interval``) or after
+        ``fleet_timeout`` s."""
+        want = {f"daemon:{d.name}" for d in daemons}
+        deadline = time.monotonic() + fleet_timeout
+        while time.monotonic() < deadline:
+            seen = {s["source"] for s in
+                    self.client.request("GET", "fleet")["sources"]}
+            if want <= seen:
+                break
+            time.sleep(0.1)
+        for d in daemons:
+            d.stop()
+            self.daemons.remove(d)
+
+    def close(self):
+        self.stop_daemons(list(self.daemons), fleet_timeout=0.0)
+        self.http.stop()
+        self.srv.close()
+
+
+def _pct(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
+
+
+def _cp_leg(tmp):
+    """(a) The reference's control-plane leg as it stands, both arms."""
+    import pandas as pd
+
+    from vantage6_tpu_torch.common.enums import TaskStatus
+    from vantage6_tpu_torch.common.rest import REST_STATS
+
+    cfg = CONTROL
+    n_d, n_t, width = cfg["daemons"], cfg["tasks"], cfg["width"]
+    rng = np.random.default_rng(cfg["seed"])
+    csvs, ages = [], []
+    for i in range(n_d):
+        path = os.path.join(tmp, f"cp{i:02d}.csv")
+        pd.DataFrame({"age": rng.uniform(20, 80, cfg["rows"]).round(1)}
+                     ).to_csv(path, index=False)
+        csvs.append(path)
+        ages.append(pd.read_csv(path)["age"].to_numpy(np.float64))
+    algos = {"v6-average-py": "vantage6_tpu_torch.workloads.average"}
+
+    def arm(fast):
+        stack = _ControlStack(client_event_push=fast)
+        try:
+            collab, orgs, _ = stack.collaboration(
+                "cp", csvs, algos, transport="batched" if fast else "per-run",
+                event_wait=2.0 if fast else 0.0)
+            c, org_ids = stack.client, [o["id"] for o in orgs]
+            stats0 = REST_STATS.snapshot()
+            lat, dispatch, results, parity = [], [], [], True
+            t_all = time.perf_counter()
+            for i in range(n_t):
+                targets = [org_ids[(i + k) % n_d] for k in range(width)]
+                t0 = time.perf_counter()
+                t = c.task.create(
+                    collaboration=collab["id"], organizations=targets,
+                    image="v6-average-py",
+                    input_={"method": "partial_average",
+                            "kwargs": {"column": "age"}})
+                res = c.wait_for_results(t["id"], interval=0.25,
+                                         timeout=120.0)
+                lat.append(time.perf_counter() - t0)
+                results.append(res)
+                runs = c.run.from_task(t["id"])
+                parity &= sorted(r["organization"]["id"] for r in runs) \
+                    == sorted(targets)
+                parity &= all(TaskStatus(r["status"])
+                              == TaskStatus.COMPLETED for r in runs)
+                dispatch += [r["started_at"] - r["assigned_at"] for r in runs
+                             if r["started_at"] and r["assigned_at"]]
+            total_s = time.perf_counter() - t_all
+            stats1 = REST_STATS.snapshot()
+        finally:
+            stack.close()
+        calls = stats1["calls"] - stats0["calls"]
+        return dict(task_p50_ms=1e3 * float(np.median(lat)),
+                    task_p95_ms=1e3 * _pct(lat, 95),
+                    dispatch_p50_ms=1e3 * float(np.median(dispatch)),
+                    dispatch_p95_ms=1e3 * _pct(dispatch, 95),
+                    tasks_per_s=n_t / total_s, rest_calls=int(calls),
+                    rest_calls_per_task=calls / n_t,
+                    stale_retries=int(stats1["stale_retries"]
+                                      - stats0["stale_retries"]),
+                    parity_ok=bool(parity)), results
+
+    legacy, legacy_results = arm(fast=False)
+    fast, fast_results = arm(fast=True)
+    # each task's pooled mean from its partials against numpy's
+    worst = 0.0
+    for i, res in enumerate(fast_results):
+        pooled = np.concatenate([ages[(i + k) % n_d] for k in range(width)])
+        got = sum(r["sum"] for r in res) / sum(r["count"] for r in res)
+        worst = max(worst, abs(got - pooled.mean()) / abs(pooled.mean()))
+        check(sum(r["count"] for r in res) == pooled.size,
+              f"control-plane task {i}: count off numpy")
+    out = dict(daemons=n_d, tasks=n_t, width=width,
+               per_run_polled=legacy, batched_pushed=fast,
+               results_identical=legacy_results == fast_results,
+               max_rel_err_vs_numpy=worst)
+    for name, a in (("per-run + polled", legacy), ("batched + pushed", fast)):
+        print(f"control plane {name}: task p50/p95 {a['task_p50_ms']:.1f}/"
+              f"{a['task_p95_ms']:.1f} ms, dispatch p50/p95 "
+              f"{a['dispatch_p50_ms']:.1f}/{a['dispatch_p95_ms']:.1f} ms, "
+              f"{a['tasks_per_s']:.2f} tasks/s, "
+              f"{a['rest_calls_per_task']:.1f} REST calls per task, "
+              f"{a['stale_retries']} stale retries, parity {a['parity_ok']}")
+    print(f"control plane: results identical across the arms "
+          f"{out['results_identical']}, worst task mean vs numpy "
+          f"{worst:.3e} (rel)")
+    check(legacy["parity_ok"] and fast["parity_ok"],
+          "a control-plane task lost, duplicated or failed a run")
+    check(out["results_identical"], "the two arms' results differ")
+    check(worst <= 1e-12, f"a task mean is off numpy's: {worst:.3e}")
+    return out
+
+
+def _cp_device_engine(torch, dev, stack, tmp):
+    """(b) Phase 13's station through the daemon's device engine on the
+    card: each call against the same call made directly, bit for bit, and
+    a profile window over one task holding CUDA kernel events."""
+    import threading
+
+    import pandas as pd
+
+    from vantage6_tpu_torch.runtime import profiling
+    from vantage6_tpu_torch.workloads import device_engine as DE
+
+    cfg, n = DISTRIBUTED, DISTRIBUTED["rows"]
+    cols, features = _engine_station(0)
+    csv = os.path.join(tmp, "engine_station.csv")
+    pd.DataFrame(cols).to_csv(csv, index=False)
+    df = pd.read_csv(csv)  # what the daemon loads for each run
+    collab, orgs, (daemon,) = stack.collaboration(
+        "engine", [csv],
+        {"device-engine": "vantage6_tpu_torch.workloads.device_engine"},
+        # the daemon's default device, the card; the CPU only where this
+        # phase is rehearsed on it
+        device_engine={} if dev.type == "cuda" else {"device": "cpu"},
+        poll_interval=0.05,
+        fleet_push_interval=CONTROL["fleet_push_interval"])
+    check(daemon.engine_device.type == dev.type
+          and daemon.runner.engine_device == daemon.engine_device,
+          f"the device-engine daemon runs on {daemon.engine_device}")
+    c = stack.client
+    calls = {"device_column_stats": dict(column="age", pad_to=n)}
+    for mode in AGG_MODES:
+        calls[f"device_logistic_fit_{mode}"] = dict(
+            feature_columns=features, label_column="label",
+            rounds=cfg["rounds"], local_steps=cfg["local_steps"],
+            batch_rows=n, lr=cfg["lr"], agg_mode=mode)
+
+    def rest(method, kwargs):
+        t = c.task.create(collaboration=collab["id"],
+                          organizations=[orgs[0]["id"]],
+                          image="device-engine", engine="device",
+                          input_={"method": method, "kwargs": kwargs})
+        (out,) = c.wait_for_results(t["id"], interval=0.01, timeout=300)
+        return out
+
+    def direct(method, kwargs):
+        out = getattr(DE, method).__wrapped__(df, device=dev, **kwargs)
+        torch.cuda.synchronize()
+        return out
+
+    res = {}
+    for name, kwargs in calls.items():
+        method = name if name == "device_column_stats" \
+            else "device_logistic_fit"
+        rest_ms, direct_ms, same = [], [], True
+        direct(method, kwargs)  # warm-up
+        for _ in range(CONTROL["turns"]):
+            t0 = time.perf_counter()
+            a = rest(method, kwargs)
+            rest_ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            b = direct(method, kwargs)
+            direct_ms.append(1e3 * (time.perf_counter() - t0))
+            same &= a == b
+        res[name] = dict(rest_ms=float(np.median(rest_ms)),
+                         direct_ms=float(np.median(direct_ms)),
+                         rest_runs_ms=rest_ms, direct_runs_ms=direct_ms,
+                         bit_identical=bool(same))
+        print(f"device engine via REST {name}: submit->result "
+              f"{res[name]['rest_ms']:.1f} ms, direct call "
+              f"{res[name]['direct_ms']:.3f} ms (medians of "
+              f"{CONTROL['turns']}, in turns), bit for bit {same}")
+        check(same, f"{name} through REST differs from the direct call")
+
+    # a profile window taken through the server around one task
+    window = {}
+
+    def profile():
+        window.update(c.util.debug_profile(
+            seconds=CONTROL["profile_seconds"]))
+
+    th = threading.Thread(target=profile)
+    th.start()
+    t0 = time.monotonic()
+    while not profiling._PROFILE_LOCK.locked() \
+            and time.monotonic() - t0 < 10:
+        time.sleep(0.01)
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    rest("device_logistic_fit", calls["device_logistic_fit_replicated"])
+    task_s = time.perf_counter() - t0
+    th.join()
+    kernels = profiling.trace_kernel_events(window["trace"])
+    res["profile"] = dict(seconds=window["seconds"], task_s=task_s,
+                          kernel_events=kernels, trace=window["trace"])
+    print(f"device engine via REST: a {window['seconds']} s "
+          f"/api/debug/profile window around one task ({task_s:.3f} s) "
+          f"holds {kernels} CUDA kernel events")
+    check(task_s + 0.5 < CONTROL["profile_seconds"],
+          "the task outlasted the profile window")
+    check(kernels > 0, "the profile window holds no CUDA kernel")
+    stack.stop_daemons([daemon])
+    return res
+
+
+def _cp_fanout(torch, dev, stack, tmp):
+    """(c) ``central_average`` over phase 12's registry behind 32 inline
+    daemons (researcher -> node A -> proxy -> 32 subtasks), against the
+    in-process Federation and numpy."""
+    import pandas as pd
+
+    from vantage6_tpu_torch.runtime.federation import federation_from_datasets
+    from vantage6_tpu_torch.workloads import average
+
+    _, counts, _, x, *_ = _registry(WORKLOADS, torch, dev)
+    f0 = [x[i, :c, 0].astype(np.float64) for i, c in enumerate(counts)]
+    del x
+    csvs = []
+    for i, a in enumerate(f0):
+        path = os.path.join(tmp, f"registry{i:02d}.csv")
+        pd.DataFrame({"f0": a}).to_csv(path, index=False)
+        csvs.append(path)
+    t0 = time.perf_counter()
+    collab, orgs, daemons = stack.collaboration(
+        "registry", csvs,
+        {"v6-average-py": "vantage6_tpu_torch.workloads.average"},
+        poll_interval=0.05,
+        fleet_push_interval=CONTROL["fleet_push_interval"])
+    start_s = time.perf_counter() - t0
+    c = stack.client
+    t0 = time.perf_counter()
+    task = c.task.create(collaboration=collab["id"],
+                         organizations=[orgs[0]["id"]],
+                         image="v6-average-py",
+                         input_={"method": "central_average",
+                                 "kwargs": {"column": "f0"}})
+    (rest_out,) = c.wait_for_results(task["id"], interval=0.01, timeout=300)
+    rest_ms = 1e3 * (time.perf_counter() - t0)
+    subtasks = [t for t in c.task.list()
+                if (t.get("parent") or {}).get("id") == task["id"]]
+    stack.stop_daemons(daemons)
+
+    fed = federation_from_datasets(
+        [pd.DataFrame({"f0": a}) for a in f0], {"avg": average},
+        device=dev, executor_workers=WORKLOADS["workers"])
+    try:
+        t0 = time.perf_counter()
+        t = fed.create_task("avg", {"method": "central_average",
+                                    "kwargs": {"column": "f0"}},
+                            organizations=[0])
+        (fed_out,) = fed.wait_for_results(t.id)
+        fed_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        fed.close()
+    pooled = np.concatenate(f0)
+    rel_fed = abs(rest_out["average"] - fed_out["average"]) \
+        / abs(fed_out["average"])
+    rel_np = abs(rest_out["average"] - pooled.mean()) / abs(pooled.mean())
+    res = dict(stations=len(f0), patients=int(counts.sum()),
+               daemons_start_s=start_s, rest_ms=rest_ms, federation_ms=fed_ms,
+               rest=rest_out, federation=fed_out, numpy=float(pooled.mean()),
+               rel_err_vs_federation=rel_fed, rel_err_vs_numpy=rel_np,
+               subtasks=len(subtasks))
+    print(f"central fan-out: {len(f0)} daemons ({start_s:.1f} s to start) "
+          f"over {res['patients']} patients: REST {rest_ms:.1f} ms, "
+          f"in-process Federation {fed_ms:.1f} ms; average "
+          f"{rest_out['average']!r} vs Federation {fed_out['average']!r} "
+          f"(rel {rel_fed:.3e}), numpy {pooled.mean()!r} (rel "
+          f"{rel_np:.3e}); {len(subtasks)} subtask(s)")
+    check(rest_out["count"] == fed_out["count"] == pooled.size,
+          f"fan-out counts {rest_out['count']}, {fed_out['count']} != "
+          f"{pooled.size}")
+    check(rel_fed <= FANOUT_FED_RTOL,
+          f"REST average off the Federation's: {rel_fed:.3e}")
+    check(rel_np <= FANOUT_NUMPY_RTOL,
+          f"REST average off numpy's: {rel_np:.3e}")
+    return res
+
+
+def _cp_sandbox(stack, tmp):
+    """(d) One sandboxed ``partial_average``: a child process that runs
+    the port's ``wrap_algorithm`` with the card hidden; ``jax`` shadowed
+    by a package that records any import of it."""
+    import pandas as pd
+
+    shadow = os.path.join(tmp, "shadow")
+    os.makedirs(os.path.join(shadow, "jax"), exist_ok=True)
+    marker = os.path.join(tmp, "jax_imported")
+    with open(os.path.join(shadow, "jax", "__init__.py"), "w") as f:
+        f.write(f"open({marker!r}, 'w').close()\n"
+                "raise ImportError('jax is blocked in the sandbox')\n")
+    rng = np.random.default_rng(CONTROL["seed"])
+    path = os.path.join(tmp, "sandbox.csv")
+    pd.DataFrame({"age": rng.uniform(20, 80, CONTROL["sandbox_rows"])
+                  .round(1)}).to_csv(path, index=False)
+    age = pd.read_csv(path)["age"]
+    old = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = shadow
+    try:
+        collab, orgs, (daemon,) = stack.collaboration(
+            "sandbox", [path],
+            {"v6-average-py": "vantage6_tpu_torch.workloads.average"},
+            mode="sandbox", poll_interval=0.05,
+            fleet_push_interval=CONTROL["fleet_push_interval"])
+        c = stack.client
+        t0 = time.perf_counter()
+        t = c.task.create(collaboration=collab["id"],
+                          organizations=[orgs[0]["id"]],
+                          image="v6-average-py",
+                          input_={"method": "partial_average",
+                                  "kwargs": {"column": "age"}})
+        (out,) = c.wait_for_results(t["id"], interval=0.01, timeout=300)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        stack.stop_daemons([daemon])
+    finally:
+        if old is None:
+            os.environ.pop("PYTHONPATH")
+        else:
+            os.environ["PYTHONPATH"] = old
+    res = dict(wall_ms=wall_ms, result=out, jax_imported=os.path.exists(
+        marker), rows=int(age.size))
+    print(f"sandboxed partial_average: child run {wall_ms:.1f} ms "
+          f"(submit->result), {out}, jax imported {res['jax_imported']}")
+    check(not res["jax_imported"], "the sandboxed child imported jax")
+    check(out["count"] == age.size
+          and abs(out["sum"] - float(age.sum())) <= 1e-9 * abs(age.sum()),
+          f"sandboxed partial_average off pandas: {out}")
+    return res
+
+
+def _cp_surfaces(stack, daemon_names):
+    """(e) The server's own surfaces after (b)-(d): health, metrics and
+    the daemons' fleet pushes read back from ``/api/fleet``."""
+    c = stack.client
+    health = c.util.health()
+    text = c.util.metrics()
+    names = {line.split("{")[0].split(" ")[0] for line in text.splitlines()
+             if line and not line.startswith("#")}
+    wanted = ("v6t_http_requests_total", "v6t_event_hub", "v6t_auth_cache",
+              "v6t_rest", "v6t_device_")
+    present = {w: any(n.startswith(w) for n in names) for w in wanted}
+    fleet = c.request("GET", "fleet")
+    pushed = {s["source"]: s for s in fleet["sources"]}
+    read_back = {n: f"daemon:{n}" in pushed for n in daemon_names}
+    res = dict(health=health["status"], components={
+        k: v.get("ok") for k, v in health.get("components", {}).items()},
+        metrics=present, series=len(names), fleet_sources=sorted(pushed),
+        daemons_read_back=read_back)
+    print(f"server surfaces: health {health['status']} "
+          f"{res['components']}, /api/metrics {len(names)} series "
+          f"{present}, /api/fleet sources {sorted(pushed)}")
+    check(health["status"] == "ok", f"server health {health['status']}")
+    check(all(present.values()), f"/api/metrics lacks series: {present}")
+    check(all(read_back.values()),
+          f"daemons' fleet pushes not in /api/fleet: {read_back}")
+    return res
+
+
+def phase_control_plane(fa, torch, dev):
+    """Phase 16 (module doc): the REST stack on the card."""
+    import gc
+    import shutil
+    import tempfile
+
+    from vantage6_tpu_torch.runtime import profiling  # noqa: F401 (series)
+
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    gc.collect()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="v6t-control-plane-")
+    try:
+        res = {"leg": _cp_leg(tmp)}
+        stack = _ControlStack()
+        try:
+            res["device_engine"] = _cp_device_engine(torch, dev, stack, tmp)
+            res["fanout"] = _cp_fanout(torch, dev, stack, tmp)
+            res["sandbox"] = _cp_sandbox(stack, tmp)
+            res["surfaces"] = _cp_surfaces(stack, stack.names)
+        finally:
+            stack.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.synchronize()
+    launches = dict(fa.flash_forward_cuda.variant_launches)
+    res["launches"] = launches
+    print(f"control plane flash launches: {launches} (0 expected: host "
+          f"control plane and the device engine's eager programs); phase "
+          f"{res['seconds']:.1f} s")
+    check(sum(launches.values()) == 0,
+          f"phase 16 launched a flash kernel: {launches}")
+    return res
+
+
 def _leaves(tree):
     from vantage6_tpu_torch._tree import tree_leaves
 
@@ -4558,6 +5086,7 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"optional_packages": optional_packages()}))
     ops = phase_ops(fa, torch, dev)
     crypto = phase_crypto(fa, torch, dev)
+    control = phase_control_plane(fa, torch, dev)
     print(f"fedavg-cnn: {fedavg['fused_ms_per_round']:.3f} ms/round fused "
           f"({fedavg['rounds_per_s']:.1f} rounds/s), "
           f"{fedavg['eager_ms_per_round']:.3f} ms/round eager, "
@@ -4645,6 +5174,21 @@ def main(argv: list[str]) -> int:
           f"Paillier KM {ck['task_ms']:.1f} ms, "
           f"{ck['encryptions_per_s']:.2f} encryptions/s; phase "
           f"{crypto['seconds']:.1f} s on {card}")
+    lp, lf = (control["leg"]["per_run_polled"],
+              control["leg"]["batched_pushed"])
+    cd, cf = control["device_engine"], control["fanout"]
+    print(f"control plane: batched + pushed task p50/p95 "
+          f"{lf['task_p50_ms']:.1f}/{lf['task_p95_ms']:.1f} ms, "
+          f"{lf['tasks_per_s']:.2f} tasks/s (per-run + polled "
+          f"{lp['task_p50_ms']:.1f}/{lp['task_p95_ms']:.1f} ms, "
+          f"{lp['tasks_per_s']:.2f} tasks/s); device engine via REST "
+          + ", ".join(f"{k} {v['rest_ms']:.1f} ms (direct "
+                      f"{v['direct_ms']:.3f})" for k, v in cd.items()
+                      if k != "profile")
+          + f"; fan-out over {cf['stations']} daemons {cf['rest_ms']:.1f} ms "
+          f"(Federation {cf['federation_ms']:.1f}); sandboxed run "
+          f"{control['sandbox']['wall_ms']:.1f} ms; phase "
+          f"{control['seconds']:.1f} s on {card}")
 
     # each kernel at the shape and dtype it serves: the tensor-core kernels
     # at the main path's head dim 128, the CUDA-core one in bf16 at head
@@ -4670,6 +5214,7 @@ def main(argv: list[str]) -> int:
         launches_distributed=distributed["launches"][variant],
         launches_ops=ops["launches"][variant],
         launches_crypto=crypto["launches"][variant],
+        launches_control_plane=control["launches"][variant],
         **{key: times[case][variant][key] for key in (
             "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
@@ -4681,7 +5226,7 @@ def main(argv: list[str]) -> int:
                   fedavg=fedavg, compression=compression, analysis=analysis,
                   task_plane=task_plane, planes=planes,
                   workloads=workloads, distributed=distributed, ops=ops,
-                  crypto=crypto, kernels=kernels,
+                  crypto=crypto, control_plane=control, kernels=kernels,
                   times=times, profile=prof,
                   seconds=time.perf_counter() - t_start)
     out_dir = os.path.join(HERE, "chiprun_out")
@@ -4694,7 +5239,8 @@ def main(argv: list[str]) -> int:
                       "compression": compression, "analysis": analysis,
                       "task_plane": task_plane, "planes": planes,
                       "workloads": workloads, "distributed": distributed,
-                      "ops": ops, "crypto": crypto}, default=str))
+                      "ops": ops, "crypto": crypto,
+                      "control_plane": control}, default=str))
     # the card again, near the end: a long results line above can push the
     # first one out of a truncated capture of the output
     print(card)

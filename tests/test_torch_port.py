@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither ``jax``, the JAX
-package, ``pandas`` nor ``yaml`` (none need be installed where the port
-runs), and its entry points do not fall back to the CPU."""
+package, ``pandas``, ``yaml``, ``requests``, ``cryptography``,
+``websockets`` nor ``marshmallow`` at import time (none need be installed
+where the port runs), and its entry points do not fall back to the CPU."""
 import os
 import subprocess
 import sys
@@ -13,14 +14,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_and_chip_smoke_import_without_jax():
-    """In a fresh interpreter with ``jax``, ``pandas``, ``yaml``,
-    ``requests`` and ``cryptography`` blocked, every module of the port and
-    ``chip_smoke.py`` import, a Federation with the autopilot enabled
-    builds and closes on the CPU, and no ``vantage6_tpu`` module is
-    loaded."""
+    """In a fresh interpreter with ``jax``, the JAX package, ``pandas``,
+    ``yaml``, ``requests``, ``cryptography``, ``websockets`` and
+    ``marshmallow`` blocked, every module of the port and ``chip_smoke.py``
+    import, a Federation with the autopilot enabled builds and closes on the
+    CPU, the control plane's 27 modules are among them, and no
+    ``vantage6_tpu`` module is loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        for blocked in ("jax", "pandas", "yaml", "requests", "cryptography"):
+        for blocked in ("jax", "vantage6_tpu", "pandas", "yaml", "requests",
+                        "cryptography", "websockets", "marshmallow"):
             sys.modules[blocked] = None
         sys.path.insert(0, sys.argv[1])
         import vantage6_tpu_torch as pkg
@@ -37,8 +40,13 @@ def test_port_and_chip_smoke_import_without_jax():
         fed = Federation(cfg, device="cpu")
         assert fed.autopilot.actuator is fed
         fed.close()
-        leaked = sorted(m for m in sys.modules
-                        if m == "vantage6_tpu" or m.startswith("vantage6_tpu."))
+        control_plane = [n for n in names if n.split(".")[1] in
+                         ("server", "node", "client")
+                         or n.endswith("algorithm.wrap")]
+        assert len(control_plane) == 27, control_plane
+        leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                        and (m == "vantage6_tpu"
+                             or m.startswith("vantage6_tpu.")))
         assert not leaked, leaked
         print(len(names))
     """)
@@ -51,8 +59,9 @@ def test_port_and_chip_smoke_import_without_jax():
     # plane's 19 (algorithm/ 6, runtime/ 7, common/ 3, config, guards,
     # average), the observed planes' 3, the parity ladder's 4, the
     # multi-process 2, the ops plane's 9 (common/ 7, runtime/ 2), and the
-    # host crypto's 7 (native, common/ 4, secure_average, preprocess)
-    assert int(res.stdout.strip().splitlines()[-1]) >= 72
+    # host crypto's 7 (native, common/ 4, secure_average, preprocess), and
+    # the control plane's 27 (server/ 18, node/ 5, client/ 3, wrap)
+    assert int(res.stdout.strip().splitlines()[-1]) >= 99
 
 
 def test_mesh_without_cuda_requires_explicit_cpu(monkeypatch):
@@ -115,3 +124,43 @@ def test_task_plane_without_cuda_requires_explicit_cpu(monkeypatch):
     assert client.result.get(task["id"]) == [{"average": 1.0, "count": 6}]
     stacked = client.federation.stacked_data()
     assert stacked["x"].device.type == "cpu"
+
+
+def test_node_daemon_device_engine_without_cuda_requires_explicit_cpu(
+        monkeypatch):
+    """``NodeDaemon(device_engine={})`` without CUDA raises before it
+    touches the network; with ``device: "cpu"`` it starts and its runner
+    runs device tasks on the CPU (``test_torch_device_engine_rest.py``
+    runs them)."""
+    from vantage6_tpu_torch.client import UserClient
+    from vantage6_tpu_torch.node.daemon import NodeDaemon
+    from vantage6_tpu_torch.server.app import ServerApp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="'cpu'"):
+        NodeDaemon(api_url="http://127.0.0.1:9", api_key="unused",
+                   device_engine={})
+    srv = ServerApp()
+    srv.ensure_root(password="rootpass123")
+    http = srv.serve(port=0, background=True)
+    d = None
+    try:
+        client = UserClient(http.url)
+        client.authenticate("root", "rootpass123")
+        org = client.organization.create(name="cpu_engine")
+        collab = client.collaboration.create(
+            name="cpu_engine", organization_ids=[org["id"]])
+        key = client.node.create(organization_id=org["id"],
+                                 collaboration_id=collab["id"])["api_key"]
+        d = NodeDaemon(
+            api_url=http.url, api_key=key, mode="inline", poll_interval=0.05,
+            algorithms={"device-engine":
+                        "vantage6_tpu_torch.workloads.device_engine"},
+            device_engine={"device": "cpu"})
+        assert d.engine_device == torch.device("cpu")
+        assert d.runner.engine_device == torch.device("cpu")
+    finally:
+        if d is not None:
+            d.stop()
+        http.stop()
+        srv.close()
