@@ -10,11 +10,15 @@ Phases, each of which raises (exit code 1) on failure:
    (one ``nvcc`` per source, all at once) and print ptxas's register,
    spill and shared-memory report;
 2. each kernel against its plain PyTorch version on the card, at the
-   kernel's own tiles: the CUDA-core kernel in f32 and bf16, the
-   tensor-core kernel in bf16 and the TF32x3 kernel in f32, each at every
-   head dim it takes, causal and not, Tq and Tk off its tiles, Tq != Tk,
-   ring-hop offsets that leave tiles partly visible, keys ahead of queries,
-   fully masked rows (exact zeros); each error beside its tolerance;
+   kernel's own tiles for the head dim: the tensor-core kernel in bf16 and
+   the TF32x3 kernel in f32 at each width they are instantiated for, at
+   D = 8, 24, 80 and 96 (run on a wider instantiation's zero-filled
+   columns) and at D = 12 (zero-padded by the wrapper), the CUDA-core
+   kernel beside them at the widths it takes (8-128, powers of two);
+   causal and not, Tq and Tk off the tiles, Tq != Tk, ring-hop offsets
+   that leave tiles partly visible, keys ahead of queries, a negative
+   scale, fully masked rows (exact zeros) at every width; each error
+   beside its tolerance;
 3. f32 gradients through the autograd wrapper, whose forward is the
    TF32x3 kernel, against the dense reference;
 4. the slice at full width: the federated transformer round of the JAX
@@ -27,14 +31,23 @@ Phases, each of which raises (exit code 1) on failure:
    bf16, TF32x3 for f32) must have launched rounds x stations x layers
    times and no other kernel at all, and a round with the plain
    ``recompute`` attention from the same state must give the same loss
-   within the dtype's tolerance;
+   within the dtype's tolerance; (c) the same round at Phi-3-mini's
+   published widths (d_model 3072, 32 heads of 96, vocab 32064; the
+   repo's transformer, so no rotary embedding and no gated MLP), depth
+   cut to 2 layers, 4 stations of 4 x 1024 tokens, bf16, 3 rounds with
+   station 3 masked in the last: head dim 96 runs the tensor-core kernel
+   on zero-filled columns, which must launch rounds x stations x layers
+   times and no other kernel at all, and the loss must equal a
+   ``recompute`` round's from the same state within 2^-8;
 5. times on the card: ms per round, tokens/s and peak memory of each run,
-   and at the main path's shape each kernel's ms per launch beside the
-   CUDA-core kernel's on the same tensors, in turns (bf16: tensor-core;
-   f32: TF32x3), their plain versions', the bound, and
-   ``scaled_dot_product_attention`` in the same dtype as a yardstick (the
-   port never calls it); then the CUDA-core kernel at the shape it
-   serves, [16, 8, 1024, 8] bf16 causal, the same figures;
+   and each kernel's ms per launch at [B, 8, 1024, D] causal (``TIMED``):
+   at the main path's D = 128 beside the CUDA-core kernel on the same
+   tensors, in turns (bf16: tensor-core; f32: TF32x3); bf16 at D = 8, the
+   tensor-core kernel beside the CUDA-core one; both dtypes at D = 96 and
+   at D = 256 (batch 8); each with its plain version's time, the bound
+   (bytes, tensor-core products or the exps on the special-function
+   units, whichever is largest), and ``scaled_dot_product_attention`` in
+   the same dtype as a yardstick (the port never calls it);
 6. the flagship FedAvg-CNN at full size (the JAX package's benchmark
    config: 32 stations x 256 examples, Dirichlet 0.5, noise 2.0, 10 local
    steps of batch 32 at lr 0.05, server sgd(1.0), bf16 compute, 5 fused
@@ -358,6 +371,14 @@ FULL = dict(d_model=1024, n_layers=8, n_heads=8, seq=1024, batch=16,
             vocab=4096, stations=4)
 ROUNDS = 8
 DROP_ROUND = 2  # station 3 is masked out in this round
+# Phi-3-mini's published widths (microsoft/Phi-3-mini-4k-instruct
+# config.json: hidden_size 3072, num_attention_heads 32, so head dim 96,
+# vocab_size 32064) in the repo's own transformer, which has no rotary
+# embedding and no gated MLP (its MLP is 4 x d_model, Phi-3-mini's 8192);
+# depth cut from 32 layers to 2, 4 stations of 4 x 1024 tokens
+PHI3 = dict(d_model=3072, n_layers=2, n_heads=32, seq=1024, batch=4,
+            vocab=32064, stations=4)
+PHI3_ROUNDS = 3  # the last one (DROP_ROUND) with station 3 masked out
 
 # the ring path's runs: (compute dtype, seq_devices)
 RING_RUNS = (("bfloat16", 1), ("float32", 1), ("bfloat16", 4))
@@ -442,29 +463,52 @@ def trace_device(torch, fn):
     return wall_ms, sorted(rows, reverse=True)
 
 
+EX2_PER_CLOCK = 16  # ex2 a clock per SM (Hopper's special-function units)
+
+
+def exp_rate(torch) -> float:
+    """ex2 a second of the card: EX2_PER_CLOCK a clock on each SM at the
+    card's maximum SM clock (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    mhz = float(out.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EX2_PER_CLOCK * sms * mhz * 1e6
+
+
 def attention_bound(b, h, t_q, t_k, d, q_offset, k_offset, causal,
-                    elem_bytes, peak_flops):
-    """(bound_ms, bound_by): the larger of the bytes q, k, v, o must move
-    over the memory rate and the operations the unmasked scores need
-    (2*d for q.k and 2*d for p.v per visible pair) over the peak rate."""
+                    elem_bytes, peak_flops, ex2_per_s):
+    """(bound_ms, bound_by, term): the largest of the bytes q, k, v, o must
+    move over the memory rate, the products the unmasked scores need (2*d
+    for q.k and 2*d for p.v per visible pair) over the tensor cores' peak,
+    and their exps (one per visible score) over the card's ex2 rate.
+    ``bound_by`` is "bytes" or "operations"; ``term`` names the winner
+    ("bytes", "tensor" or "exp")."""
     if causal:
         vis = sum(min(max(q_offset + i - k_offset + 1, 0), t_k)
                   for i in range(t_q))
     else:
         vis = t_q * t_k
-    flops = 4.0 * d * vis * b * h
-    nbytes = elem_bytes * b * h * d * (2 * t_q + 2 * t_k)
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                      else "operations")
+    terms = {
+        "bytes": elem_bytes * b * h * d * (2 * t_q + 2 * t_k) / PEAK_BYTES,
+        "tensor": 4.0 * d * vis * b * h / peak_flops,
+        "exp": vis * b * h / ex2_per_s,
+    }
+    term = max(terms, key=terms.get)
+    return (1e3 * terms[term], "bytes" if term == "bytes" else "operations",
+            term)
 
 
 def compare(fa, torch, out, q, k, v, qo, ko, causal, scale, variant, tol):
     """Max abs error of a kernel's output against its plain version at the
-    kernel's tiles, checked against tol + tol * max|plain|."""
-    spec = fa.KERNELS[variant]
-    plain = fa.kernel_reference(q, k, v, qo, ko, causal, scale,
-                                spec.block_q, spec.block_k)
+    kernel's tiles for this head dim, checked against
+    tol + tol * max|plain|."""
+    block_q, block_k = fa.KERNELS[variant].blocks(q.shape[-1])
+    plain = fa.kernel_reference(q, k, v, qo, ko, causal, scale, block_q,
+                                block_k)
     torch.cuda.synchronize()
     check(out.shape == q.shape and out.dtype == q.dtype, "kernel output shape")
     check(bool(torch.isfinite(out.float()).all()), "non-finite output")
@@ -475,69 +519,101 @@ def compare(fa, torch, out, q, k, v, qo, ko, causal, scale, variant, tol):
     return err, lim
 
 
+# head dims past the instantiated widths: bf16 at D = 8 (below wgmma's k16
+# depth), and widths of real models that run the next instantiation on
+# zero-filled columns (Phi-2's 80, Phi-3-mini's 96)
+EXTRA_HEAD_DIMS = (8, 24, 80, 96)
+PAD_HEAD_DIM = 12  # not a multiple of 8: the wrapper zero-pads q, k and v
+
+
+def kernel_widths(fa, variant):
+    """The head dims a kernel is held at: its instantiations, and for a
+    kernel that pads, the extra widths and the wrapper's pad."""
+    spec = fa.KERNELS[variant]
+    extra = (*EXTRA_HEAD_DIMS, PAD_HEAD_DIM) if spec.pads else ()
+    return sorted(set(spec.head_dims) | set(extra))
+
+
+def takes(fa, variant, dtype, d):
+    spec = fa.KERNELS[variant]
+    return dtype in spec.dtypes and spec.width(d) is not None
+
+
 def phase_kernel_vs_plain(fa, torch, dev):
     """Each kernel against its plain version at the kernel's own tiles."""
     g = torch.Generator(device=dev).manual_seed(0)
     cases = [
-        # dtype, causal, B, H, Tq, Tk, D, q_offset, k_offset
-        ("f32", False, 2, 4, 96, 96, 64, 0, 0),
-        ("f32", True, 2, 4, 96, 96, 64, 0, 0),
-        ("f32", True, 1, 2, 1024, 1024, 128, 0, 0),
-        ("f32", False, 1, 2, 1024, 1024, 32, 0, 0),
-        ("f32", True, 2, 2, 100, 228, 16, 128, 0),  # ring hop, ragged
-        ("f32", True, 1, 3, 256, 512, 8, 256, 0),  # ring hop, Tq != Tk
-        ("bf16", False, 2, 4, 96, 96, 128, 0, 0),
-        ("bf16", True, 2, 4, 96, 96, 16, 0, 0),
-        ("bf16", True, 1, 2, 1024, 1024, 64, 0, 0),
-        ("bf16", False, 1, 2, 1024, 1024, 128, 0, 0),
-        ("bf16", True, 2, 2, 100, 228, 32, 128, 0),
-        ("bf16", True, 1, 3, 256, 512, 8, 256, 0),
+        # dtype, causal, B, H, Tq, Tk, D, q_offset, k_offset, scale
+        ("f32", False, 2, 4, 96, 96, 64, 0, 0, None),
+        ("f32", True, 2, 4, 96, 96, 64, 0, 0, None),
+        ("f32", True, 1, 2, 1024, 1024, 128, 0, 0, None),
+        ("f32", False, 1, 2, 1024, 1024, 32, 0, 0, None),
+        ("f32", True, 2, 2, 100, 228, 16, 128, 0, None),  # ring hop, ragged
+        ("f32", True, 1, 3, 256, 512, 8, 256, 0, None),  # ring hop, Tq != Tk
+        ("bf16", False, 2, 4, 96, 96, 128, 0, 0, None),
+        ("bf16", True, 2, 4, 96, 96, 16, 0, 0, None),
+        ("bf16", True, 1, 2, 1024, 1024, 64, 0, 0, None),
+        ("bf16", False, 1, 2, 1024, 1024, 128, 0, 0, None),
+        ("bf16", True, 2, 2, 100, 228, 32, 128, 0, None),
+        ("bf16", True, 1, 3, 256, 512, 8, 256, 0, None),
+        # scale 0: every visible p is 1, masked ones still 0
+        ("f32", True, 1, 2, 130, 200, 96, 70, 0, 0.0),
+        ("bf16", True, 1, 2, 130, 200, 96, 70, 0, 0.0),
     ]
-    # the tensor-core (bf16) and TF32x3 (f32) kernels at their edges (tiles
-    # 128 x 64), each head dim
+    # the tensor-core (bf16) and TF32x3 (f32) kernels at their edges, each
+    # head dim they are instantiated for and the widths they pad to
     for name, variant in (("bf16", "tensor_core"), ("f32", "tf32x3")):
-        for d in fa.KERNELS[variant].head_dims:
+        for d in kernel_widths(fa, variant):
             cases += [
-                (name, True, 1, 3, 200, 200, d, 0, 0),  # Tq, Tk off tiles
-                (name, False, 1, 2, 130, 70, d, 0, 0),  # Tq != Tk, ragged
-                (name, True, 2, 2, 150, 333, d, 183, 0),  # ring hop
+                (name, True, 1, 3, 200, 200, d, 0, 0, None),  # off tiles
+                (name, False, 1, 2, 130, 70, d, 0, 0, None),  # Tq != Tk
+                (name, True, 2, 2, 150, 333, d, 183, 0, None),  # ring hop
                 # keys ahead of queries: rows before 90 fully masked, the
                 # rest see a partly visible tile
-                (name, True, 1, 2, 257, 100, d, 37, 90),
+                (name, True, 1, 2, 257, 100, d, 37, 90, None),
+                # a negative scale: the max is of the scaled scores
+                (name, True, 1, 2, 130, 200, d, 70, 0, -0.7 * d**-0.5),
             ]
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     worst = dict.fromkeys(fa.KERNELS, 0.0)
-    for name, causal, b, h, t_q, t_k, d, qo, ko in cases:
+    worst_by_width = {}
+    for name, causal, b, h, t_q, t_k, d, qo, ko, scale in cases:
         dt = dtypes[name]
         q = torch.randn(b, h, t_q, d, generator=g, device=dev).to(dt)
         k = torch.randn(b, h, t_k, d, generator=g, device=dev).to(dt)
         v = torch.randn(b, h, t_k, d, generator=g, device=dev).to(dt)
-        scale = d**-0.5
+        scale = d**-0.5 if scale is None else scale
         tol = F32_TOL if name == "f32" else BF16_TOL
         # the variant the dispatch picks, and the CUDA-core kernel beside it
-        variants = {fa.kernel_variant(dt, d), "cuda_core"}
+        # where it takes the width
+        variants = {fa.kernel_variant(dt, d)}
+        if takes(fa, "cuda_core", dt, d):
+            variants.add("cuda_core")
         for variant in sorted(variants):
             out = fa.flash_forward_cuda(q, k, v, qo, ko, causal, scale,
                                         variant=variant)
             err, lim = compare(fa, torch, out, q, k, v, qo, ko, causal,
                                scale, variant, tol)
             print(f"{variant} vs plain {name} causal={causal} "
-                  f"[{b},{h},{t_q}x{t_k},{d}] off=({qo},{ko}): "
-                  f"max_abs_err {err:.3e} tol {lim:.3e}")
+                  f"[{b},{h},{t_q}x{t_k},{d}] off=({qo},{ko}) "
+                  f"scale={scale:.4g}: max_abs_err {err:.3e} tol {lim:.3e}")
             worst[variant] = max(worst[variant], err)
+            key = f"{variant}_d{d}"
+            worst_by_width[key] = max(worst_by_width.get(key, 0.0), err)
     # fully masked: every query precedes every key -> exact zeros
     for variant, spec in fa.KERNELS.items():
         for dt in spec.dtypes:
-            for d in spec.head_dims:
+            for d in kernel_widths(fa, variant):
                 q = torch.randn(1, 2, 200, d, generator=g, device=dev).to(dt)
                 out = fa.flash_forward_cuda(q, q, q, 0, 1000, True, 0.125,
                                             variant=variant)
                 torch.cuda.synchronize()
                 check(bool((out == 0).all()),
-                      f"{variant}: fully masked rows are not exact zeros")
-    print("kernels fully masked (k_offset=1000), every dtype and head dim: "
-          "exact zeros")
-    return worst
+                      f"{variant} at D = {d}: fully masked rows are not "
+                      "exact zeros")
+    print("kernels fully masked (k_offset=1000), every dtype and head dim "
+          "held: exact zeros")
+    return dict(worst, by_width=worst_by_width)
 
 
 def phase_gradients(fa, torch, dev):
@@ -564,38 +640,40 @@ def phase_gradients(fa, torch, dev):
             check(err <= lim, f"gradient d{name} disagrees: {err}")
 
 
-def slice_engine(ft, torch, dtype=None, seq_devices=1, **cfg_kw):
-    """The slice's engine at full width on the card, its tokens and its
-    initial state. ``dtype`` is the compute dtype, None for
-    ``TransformerConfig``'s default (f32); ``cfg_kw`` overrides other
-    config fields (``attention``)."""
+def slice_engine(ft, torch, dtype=None, seq_devices=1, shape=FULL,
+                 **cfg_kw):
+    """The slice's engine at ``shape``'s widths (default the full width) on
+    the card, its tokens and its initial state. ``dtype`` is the compute
+    dtype, None for ``TransformerConfig``'s default (f32); ``cfg_kw``
+    overrides other config fields (``attention``)."""
     cfg = ft.TransformerConfig(
-        vocab=FULL["vocab"], d_model=FULL["d_model"],
-        n_heads=FULL["n_heads"], n_layers=FULL["n_layers"],
-        max_len=FULL["seq"], **cfg_kw,
+        vocab=shape["vocab"], d_model=shape["d_model"],
+        n_heads=shape["n_heads"], n_layers=shape["n_layers"],
+        max_len=shape["seq"], **cfg_kw,
         **({} if dtype is None else {"dtype": dtype}),
     )
-    n_s = FULL["stations"]
+    n_s = shape["stations"]
     eng = ft.make_engine(n_stations=n_s, seq_devices=seq_devices, cfg=cfg,
                          lr=1e-3)
     check(eng.device.type == "cuda", "engine is not on the card")
     tokens = eng.shard_tokens(ft.make_federated_tokens(
-        n_s, batch=FULL["batch"], seq_len=FULL["seq"], vocab=FULL["vocab"],
+        n_s, batch=shape["batch"], seq_len=shape["seq"],
+        vocab=shape["vocab"],
     ))
     params, opt = eng.init(torch.Generator().manual_seed(0))
     return cfg, eng, tokens, params, opt
 
 
-def train_rounds(torch, eng, params, opt, tokens, label):
-    """ROUNDS rounds from (params, opt), station 3 masked out in
-    DROP_ROUND; checks that the losses are finite and fall and the params
-    finite. Returns (params, opt, losses, seconds a round, the state the
-    last round started from)."""
-    n_s = FULL["stations"]
+def train_rounds(torch, eng, params, opt, tokens, label, rounds=ROUNDS,
+                 n_s=FULL["stations"], must_fall=True):
+    """``rounds`` rounds from (params, opt), the last station masked out
+    in DROP_ROUND; checks that the losses are finite and (``must_fall``)
+    fall and the params finite. Returns (params, opt, losses, seconds a
+    round, the state the last round started from)."""
     full = torch.ones(n_s)
     drop = torch.tensor([1.0] * (n_s - 1) + [0.0])
     losses, secs = [], []
-    for r in range(ROUNDS):
+    for r in range(rounds):
         state = (params, opt)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -609,7 +687,8 @@ def train_rounds(torch, eng, params, opt, tokens, label):
               f"loss {loss:.6f} {1e3 * secs[-1]:.1f} ms")
     check(all(x == x and abs(x) != float("inf") for x in losses),
           f"{label}: non-finite loss {losses}")
-    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    check(not must_fall or losses[-1] < losses[0],
+          f"{label}: loss did not fall: {losses}")
     check(all(bool(torch.isfinite(p).all()) for p in
               [params["embed"], params["pos"]]
               + [w for layer in params["layers"] for w in layer.values()]),
@@ -617,30 +696,33 @@ def train_rounds(torch, eng, params, opt, tokens, label):
     return params, opt, losses, secs, state
 
 
-def round_figures(torch, secs):
+def round_figures(torch, secs, shape=FULL):
     """ms/round over the steady rounds (round 0 carries one-time set-up:
     cuBLAS, the kernels' first launch), tokens/s and the peak memory."""
     steady = secs[1:]
     ms = 1e3 * sum(steady) / len(steady)
-    tokens_per_round = FULL["stations"] * FULL["batch"] * FULL["seq"]
+    tokens_per_round = shape["stations"] * shape["batch"] * shape["seq"]
     return dict(ms_per_round=ms, first_round_ms=1e3 * secs[0],
                 round_ms=[1e3 * s for s in secs],
                 tokens_per_s=tokens_per_round / (ms / 1e3),
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def phase_slice(fa, ft, torch, dev, dtype=None):
-    """The slice at full width for ROUNDS rounds, flash attention;
-    ``dtype`` is the compute dtype, None for ``TransformerConfig``'s
-    default (f32)."""
+def phase_slice(fa, ft, torch, dev, dtype=None, shape=FULL, rounds=ROUNDS,
+                must_fall=True, label=None):
+    """The slice at ``shape``'s widths (default the full width) for
+    ``rounds`` rounds, flash attention; ``dtype`` is the compute dtype,
+    None for ``TransformerConfig``'s default (f32)."""
     cfg, eng, tokens, params, opt = slice_engine(ft, torch, dtype,
+                                                 shape=shape,
                                                  attention="flash")
     dtype_name = str(cfg.dtype).removeprefix("torch.")
+    label = label or dtype_name
     variant = MAIN_VARIANT[dtype_name]
     check(fa.kernel_variant(cfg.dtype, cfg.head_dim) == variant,
           f"{dtype_name} attention is not served by the {variant} kernel")
     loss_rtol = LOSS_RTOL_F32 if cfg.dtype == torch.float32 else LOSS_RTOL
-    n_s = FULL["stations"]
+    n_s = shape["stations"]
     full = torch.ones(n_s)
 
     # the main path's counts start here
@@ -648,37 +730,42 @@ def phase_slice(fa, ft, torch, dev, dtype=None):
     fa.flash_forward_cuda.launches = 0
     fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
     params, opt, losses, secs, state = train_rounds(
-        torch, eng, params, opt, tokens, dtype_name)
+        torch, eng, params, opt, tokens, label, rounds=rounds, n_s=n_s,
+        must_fall=must_fall)
     launches = dict(fa.flash_forward_cuda.variant_launches)
-    figures = round_figures(torch, secs)
-    expect = ROUNDS * n_s * cfg.n_layers
-    print(f"flash kernel launches in the {dtype_name} run: {launches} "
+    figures = round_figures(torch, secs, shape)
+    expect = rounds * n_s * cfg.n_layers
+    print(f"flash kernel launches in the {label} run: {launches} "
           f"(rounds x stations x layers = {expect})")
     check(launches[variant] == expect,
-          f"the {dtype_name} run did not run the {variant} kernel")
+          f"the {label} run did not run the {variant} kernel")
     check(sum(launches.values()) == expect,
-          f"the {dtype_name} run ran another kernel than {variant}")
+          f"the {label} run ran another kernel than {variant}")
 
     rc_eng = ft.make_engine(
         n_stations=n_s, seq_devices=1,
         cfg=dataclasses.replace(cfg, attention="recompute"), lr=1e-3,
     )
-    _, _, rc_loss = rc_eng.round(state[0], state[1], tokens, full)
+    # the last round's mask: its loss is the mean over those stations
+    last_mask = (torch.tensor([1.0] * (n_s - 1) + [0.0])
+                 if rounds - 1 == DROP_ROUND else full)
+    _, _, rc_loss = rc_eng.round(state[0], state[1], tokens, last_mask)
     rc_loss = rc_loss.item()
     rel = abs(rc_loss - losses[-1]) / abs(rc_loss)
-    print(f"{dtype_name} loss from the same state: flash {losses[-1]:.6f} "
+    print(f"{label} loss from the same state: flash {losses[-1]:.6f} "
           f"recompute {rc_loss:.6f} rel diff {rel:.3e} tol {loss_rtol:.3e}")
     check(rel <= loss_rtol, "flash and plain attention rounds disagree")
     check(fa.flash_forward_cuda.launches == expect,
           "the plain round launched a kernel")
 
     res = dict(
-        config=dict(FULL, dtype=dtype_name, attention="flash", lr=1e-3),
-        rounds=ROUNDS, losses=losses, **figures,
+        config=dict(shape, dtype=dtype_name, attention="flash", lr=1e-3),
+        head_dim=cfg.head_dim, variant=variant,
+        rounds=rounds, losses=losses, **figures,
         launches=launches, launches_per_round=n_s * cfg.n_layers,
         recompute_loss=rc_loss, loss_rel_diff=rel, loss_rtol=loss_rtol,
     )
-    print(f"{dtype_name} slice: {res['ms_per_round']:.1f} ms/round, "
+    print(f"{label} slice: {res['ms_per_round']:.1f} ms/round, "
           f"{res['tokens_per_s']:.0f} tokens/s, peak "
           f"{res['peak_mem_gb']:.2f} GB")
     return res, (eng, params, opt, tokens, full)
@@ -838,42 +925,57 @@ def phase_wire(torch, params):
     return res
 
 
-# the shape the CUDA-core kernel serves (bf16 at head dim 8, below wgmma's
-# k16 depth): the main path's batch, heads and sequence
-D_CUDA_CORE = 8
+# the timed shapes: (case, dtype, batch, head dim, variants in turns); the
+# main path's batch, heads and sequence, at D = 256 half the batch (the
+# same products as D = 128). D = 8 times the tensor-core kernel beside the
+# CUDA-core one it replaced; D = 128 keeps the CUDA-core kernel beside each
+# tensor-core kernel, as before. Then every other width phase 2 launches,
+# the CUDA-core kernel beside the dispatched one where it takes the width.
+TIMED = (
+    ("bfloat16", "bfloat16", 16, 128, ("cuda_core", "tensor_core")),
+    ("float32", "float32", 16, 128, ("cuda_core", "tf32x3")),
+    ("bfloat16_d8", "bfloat16", 16, 8, ("cuda_core", "tensor_core")),
+    ("bfloat16_d96", "bfloat16", 16, 96, ("tensor_core",)),
+    ("float32_d96", "float32", 16, 96, ("tf32x3",)),
+    ("bfloat16_d256", "bfloat16", 8, 256, ("tensor_core",)),
+    ("float32_d256", "float32", 8, 256, ("tf32x3",)),
+) + tuple(
+    (f"{name}_d{d}", name, 16, d,
+     (("cuda_core",) if d in (8, 16, 32, 64) else ()) + (variant,))
+    for name, variant, widths in (
+        ("bfloat16", "tensor_core", (12, 16, 24, 32, 64, 80)),
+        ("float32", "tf32x3", (8, 12, 16, 24, 32, 64, 80)))
+    for d in widths
+)
 
 
 def phase_times(fa, torch, dev):
-    """Each tensor-core kernel at the main path's shape, [16, 8, 1024, 128]
-    causal, in the dtype it serves, and the CUDA-core kernel (the kernel
-    before it) on the same tensors, timed in turns: bf16 with the
-    tensor-core kernel, f32 with the TF32x3 kernel. Then the CUDA-core
-    kernel alone at the shape it serves, [16, 8, 1024, 8] bf16 causal.
-    Returns {case: {variant: figures}}."""
-    b, h, t, d = FULL["batch"], FULL["n_heads"], FULL["seq"], \
-        FULL["d_model"] // FULL["n_heads"]
+    """Each kernel at the shapes of TIMED, [B, 8, 1024, D] causal, in the
+    dtype it serves, timed in turns with the kernel beside it on the same
+    tensors (a, b, b, a; a, a for one), with its plain version's time,
+    ``scaled_dot_product_attention``'s in the same dtype as a yardstick
+    (the port never calls it) and the bound. Returns
+    {case: {variant: figures}}."""
+    h, t = FULL["n_heads"], FULL["seq"]
     g = torch.Generator(device=dev).manual_seed(2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    ex2_per_s = exp_rate(torch)
     res = {}
-    for case, dtype, peak, tol, hd, variants in (
-            ("bfloat16", torch.bfloat16, PEAK_BF16_FLOPS, BF16_TOL, d,
-             ("cuda_core", MAIN_VARIANT["bfloat16"])),
-            ("float32", torch.float32, PEAK_TF32_FLOPS, F32_TOL, d,
-             ("cuda_core", MAIN_VARIANT["float32"])),
-            ("bfloat16_d8", torch.bfloat16, PEAK_BF16_FLOPS, BF16_TOL,
-             D_CUDA_CORE, ("cuda_core",))):
-        name = str(dtype).removeprefix("torch.")
+    for case, name, b, hd, variants in TIMED:
+        dtype = getattr(torch, name)
+        peak, tol = ((PEAK_TF32_FLOPS, F32_TOL) if dtype == torch.float32
+                     else (PEAK_BF16_FLOPS, BF16_TOL))
         scale = hd**-0.5
         shape = f"[{b},{h},{t},{hd}]"
         q, k, v = (torch.randn(b, h, t, hd, generator=g, device=dev)
                    .to(dtype) for _ in range(3))
         library_ms = cuda_ms(
             lambda: sdpa(q, k, v, is_causal=True, scale=scale), 20)
-        bound_ms, bound_by = attention_bound(b, h, t, t, hd, 0, 0, True,
-                                             q.element_size(), peak)
+        bound_ms, bound_by, term = attention_bound(
+            b, h, t, t, hd, 0, 0, True, q.element_size(), peak, ex2_per_s)
         group = {}
         for variant in variants:
-            spec = fa.KERNELS[variant]
+            block_q, block_k = fa.KERNELS[variant].blocks(hd)
             out = fa.flash_forward_cuda(q, k, v, 0, 0, True, scale,
                                         variant=variant)
             err, lim = compare(fa, torch, out, q, k, v, 0, 0, True, scale,
@@ -882,16 +984,17 @@ def phase_times(fa, torch, dev):
                   f"max_abs_err {err:.3e} tol {lim:.3e}")
             plain_ms = cuda_ms(
                 lambda: fa.kernel_reference(q, k, v, 0, 0, True, scale,
-                                            spec.block_q, spec.block_k),
+                                            block_q, block_k),
                 3, warmup=1)
-            group[variant] = dict(dtype=name, shape=shape, max_abs_err=err,
-                                  ms=[], plain_ms=plain_ms,
+            group[variant] = dict(dtype=name, shape=shape, head_dim=hd,
+                                  max_abs_err=err, ms=[], plain_ms=plain_ms,
                                   library_ms=library_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by)
-        if dtype == torch.float32:
-            # the least time of three TF32 passes at the TF32 peak
-            group[variants[1]]["tf32x3_floor_ms"] = attention_bound(
-                b, h, t, t, hd, 0, 0, True, 4, peak / TF32_PASSES)[0]
+                                  bound_by=bound_by, bound_term=term)
+            if variant == "tf32x3":
+                # the least time of three TF32 passes at the TF32 peak
+                group[variant]["tf32x3_floor_ms"] = attention_bound(
+                    b, h, t, t, hd, 0, 0, True, 4, peak / TF32_PASSES,
+                    ex2_per_s)[0]
         # in turns: a, b, b, a (a, a for one variant)
         for variant in variants + variants[::-1]:
             group[variant]["ms"].append(cuda_ms(
@@ -905,8 +1008,9 @@ def phase_times(fa, torch, dev):
                   f"causal: kernel {r['ms']:.4f} ms (runs "
                   f"{r['ms_runs'][0]:.4f}, {r['ms_runs'][1]:.4f}), plain "
                   f"{r['plain_ms']:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}){floor}")
+                  f"{bound_ms:.4f} ms ({term}){floor}")
         res[case] = group
+        del q, k, v, out
     return res
 
 
@@ -5490,6 +5594,46 @@ def phase_cli(fa, torch, dev):
     return res
 
 
+def kernel_rows(fa, times, flash_runs, other_launches):
+    """The ``kernels`` line: each kernel at each dtype and width it was
+    timed at (``times`` from ``phase_times``). ``launches`` are those of
+    the flash runs (``flash_runs``) in that dtype at that head dim, and
+    ``launches_<phase>`` the other phases' counts of the variant
+    (``other_launches``: {phase: {variant: count}}). Fails unless each
+    flash run's kernel has a row whose launches are that run's, above 0."""
+    from vantage6_tpu_torch.ops import _build
+
+    kernels = []
+    for case, name, _, hd, variants in TIMED:
+        for variant in variants:
+            spec = fa.KERNELS[variant]
+            short = {"bfloat16": "bf16", "float32": "f32"}[name]
+            kernels.append(dict(
+                name=f"{spec.symbol.removeprefix('v6t_')}_{short}_d{hd}",
+                variant=variant, route="cuda",
+                source="vantage6_tpu_torch/ops/csrc/"
+                       + _build.SOURCES[spec.library],
+                replaces="vantage6_tpu/ops/flash_attention.py:31",
+                launches=sum(r["launches"][variant] for r in flash_runs
+                             if r["head_dim"] == hd
+                             and r["config"]["dtype"] == name),
+                **{f"launches_{phase}": counts[variant]
+                   for phase, counts in other_launches.items()},
+                **{key: times[case][variant][key] for key in (
+                    "dtype", "shape", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "bound_term", "library_ms")},
+            ))
+    for r in flash_runs:  # each main path's kernel: a row, and launches
+        check(any(kr["variant"] == r["variant"]
+                  and kr["dtype"] == r["config"]["dtype"]
+                  and kr["shape"].endswith(f",{r['head_dim']}]")
+                  and kr["launches"] == r["launches"][r["variant"]] > 0
+                  for kr in kernels),
+              f"the {r['variant']} kernel at D = {r['head_dim']} has no row "
+              "or launched no time on its main path")
+    return kernels
+
+
 def _leaves(tree):
     from vantage6_tpu_torch._tree import tree_leaves
 
@@ -5537,7 +5681,12 @@ def main(argv: list[str]) -> int:
         if "--profile" in argv:
             prof[name] = phase_profile(ft, torch, eng_state, name)
         del eng_state
-    for name, r in slice_res.items():
+    # 4 (c): the flash round at a head dim that runs a padded width
+    phi3, eng_state = phase_slice(fa, ft, torch, dev, torch.bfloat16,
+                                  shape=PHI3, rounds=PHI3_ROUNDS,
+                                  must_fall=False, label="phi3-mini bf16")
+    del eng_state
+    for name, r in [*slice_res.items(), ("phi3-mini bfloat16", phi3)]:
         print(f"slice {name}: {r['ms_per_round']:.1f} ms/round, "
               f"{r['tokens_per_s']:.0f} tokens/s, peak "
               f"{r['peak_mem_gb']:.2f} GB on {card}")
@@ -5692,39 +5841,21 @@ def main(argv: list[str]) -> int:
               f"{cli['tools']['test_s']:.1f} s; phase "
               f"{cli['seconds']:.1f} s on {card}")
 
-    # each kernel at the shape and dtype it serves: the tensor-core kernels
-    # at the main path's head dim 128, the CUDA-core one in bf16 at head
-    # dim 8
-    names = {"tensor_core": ("flash_attention_fwd_tc", "bfloat16"),
-             "tf32x3": ("flash_attention_fwd_tf32x3", "float32"),
-             "cuda_core": ("flash_attention_fwd", "bfloat16_d8")}
-    kernels = [dict(
-        name=name, variant=variant, route="cuda",
-        source="vantage6_tpu_torch/ops/csrc/"
-               + _build.SOURCES[fa.KERNELS[variant].library],
-        replaces="vantage6_tpu/ops/flash_attention.py:31",
-        launches=sum(r["launches"][variant] for r in slice_res.values())
-        + sum(r["launches"][variant] for r in ring.values())
-        + fedavg["launches"][variant],
-        launches_ring=sum(r["launches"][variant] for r in ring.values()),
-        launches_fedavg=fedavg["launches"][variant],
-        launches_compression=compression["launches"][variant],
-        launches_analysis=analysis["launches"][variant],
-        launches_task_plane=task_plane["launches"][variant],
-        launches_planes=planes["launches"][variant],
-        launches_workloads=workloads["launches"][variant],
-        launches_distributed=distributed["launches"][variant],
-        launches_ops=ops["launches"][variant],
-        launches_crypto=crypto["launches"][variant],
-        launches_control_plane=control["launches"][variant],
-        launches_cli=cli["launches"][variant],
-        **{key: times[case][variant][key] for key in (
-            "dtype", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")},
-    ) for variant, (name, case) in names.items()]
+    flash_runs = [*slice_res.values(), phi3]
+    kernels = kernel_rows(fa, times, flash_runs, {
+        "ring": {v: sum(r["launches"][v] for r in ring.values())
+                 for v in fa.KERNELS},
+        **{name: res["launches"] for name, res in (
+            ("fedavg", fedavg), ("compression", compression),
+            ("analysis", analysis), ("task_plane", task_plane),
+            ("planes", planes), ("workloads", workloads),
+            ("distributed", distributed), ("ops", ops), ("crypto", crypto),
+            ("control_plane", control), ("cli", cli))},
+    })
     result = dict(card=card, kind=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   max_abs_err_cases=max_err_cases, slice=slice_res,
+                  slice_phi3=phi3,
                   ring=ring, parallel_ops=parallel_ops, wire=wire,
                   fedavg=fedavg, compression=compression, analysis=analysis,
                   task_plane=task_plane, planes=planes,
@@ -5737,7 +5868,7 @@ def main(argv: list[str]) -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1, default=str)
-    print(json.dumps({"slice": slice_res, "ring": ring,
+    print(json.dumps({"slice": slice_res, "slice_phi3": phi3, "ring": ring,
                       "parallel_ops": parallel_ops, "wire": wire,
                       "fedavg": fedavg,
                       "compression": compression, "analysis": analysis,

@@ -162,17 +162,17 @@ def test_f32_kernel_reference_at_tf32x3_tiles(q_offset, k_offset, t_q, t_k):
 
 @pytest.mark.parametrize(
     "dtype,d,variant",
-    [(torch.bfloat16, d, "tensor_core") for d in (16, 32, 64, 128)]
-    + [(torch.float32, d, "tf32x3") for d in (8, 16, 32, 64, 128)]
-    + [(torch.bfloat16, 8, "cuda_core")],
+    [(torch.bfloat16, d, "tensor_core") for d in (16, 32, 64, 128, 256)]
+    + [(torch.float32, d, "tf32x3") for d in (8, 16, 32, 64, 128, 256)]
+    + [(torch.bfloat16, 8, "tensor_core")],
 )
 def test_kernel_variant_dispatch(dtype, d, variant):
-    """bf16 at D >= 16 goes to wgmma; f32 goes to the tensor cores in three
-    TF32 passes at every D (one pass would miss 2e-5); bf16 at D = 8 (below
-    wgmma's k16) stays on the CUDA cores."""
+    """bf16 goes to wgmma and f32 to the tensor cores in three TF32 passes
+    (one pass would miss 2e-5), at every D; bf16 at D = 8 (below wgmma's
+    k16) runs the D = 16 instantiation on zero-filled columns."""
     assert tfa.kernel_variant(dtype, d) == variant
     spec = tfa.KERNELS[variant]
-    assert dtype in spec.dtypes and d in spec.head_dims
+    assert dtype in spec.dtypes and spec.width(d) in spec.head_dims
 
 
 def _torch_grads(fn, arrays, loss):
@@ -275,26 +275,35 @@ def cuda():
     return torch.device("cuda")
 
 
+# the widths a kernel that pads is held at beyond its instantiations: bf16
+# at D = 8, real models' 80 and 96, 24, and 12 through the wrapper's pad
+PADDED_WIDTHS = (8, 12, 24, 80, 96)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "variant,dtype,d",
     [(variant, dtype, d) for variant, spec in tfa.KERNELS.items()
-     for dtype in spec.dtypes for d in spec.head_dims],
+     for dtype in spec.dtypes
+     for d in sorted(set(spec.head_dims)
+                     | set(PADDED_WIDTHS if spec.pads else ()))],
 )
 def test_cuda_kernel_matches_plain_version(cuda, variant, dtype, d):
-    """Each kernel against its plain version at the tiles of that kernel."""
-    spec = tfa.KERNELS[variant]
+    """Each kernel against its plain version at the tiles of that kernel
+    for the head dim, with a negative scale in the last case."""
+    block_q, block_k = tfa.KERNELS[variant].blocks(d)
     g = torch.Generator(device="cpu").manual_seed(d)
-    for t_q, t_k, qo, ko, causal in [(96, 96, 0, 0, True), (64, 64, 0, 0, False),
-                                      (32, 64, 32, 0, True), (16, 16, 0, 1000, True),
-                                      (200, 130, 70, 0, True)]:
+    for t_q, t_k, qo, ko, causal, scale in [
+            (96, 96, 0, 0, True, d**-0.5), (64, 64, 0, 0, False, d**-0.5),
+            (32, 64, 32, 0, True, d**-0.5), (16, 16, 0, 1000, True, d**-0.5),
+            (200, 130, 70, 0, True, d**-0.5), (130, 200, 70, 0, True, -0.5)]:
         q = torch.randn(2, 3, t_q, d, generator=g).to(cuda, dtype)
         k = torch.randn(2, 3, t_k, d, generator=g).to(cuda, dtype)
         v = torch.randn(2, 3, t_k, d, generator=g).to(cuda, dtype)
-        out = tfa.flash_forward_cuda(q, k, v, qo, ko, causal, d**-0.5,
+        out = tfa.flash_forward_cuda(q, k, v, qo, ko, causal, scale,
                                      variant=variant)
-        plain = tfa.kernel_reference(q, k, v, qo, ko, causal, d**-0.5,
-                                     spec.block_q, spec.block_k)
+        plain = tfa.kernel_reference(q, k, v, qo, ko, causal, scale,
+                                     block_q, block_k)
         torch.cuda.synchronize()
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         np.testing.assert_allclose(np32(out.cpu()), np32(plain.cpu()), **tol)

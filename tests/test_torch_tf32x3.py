@@ -60,8 +60,8 @@ def emulated_kernel(q, k, v, causal, passes):
     """One head, [T, D] f32: the kernel's online softmax over key tiles of
     its own size, scores in log2 units, masked scores -inf, the running max
     floored at -1e20, p kept in f32, output acc / l."""
-    block_k = tfa.KERNELS["tf32x3"].block_k
     t_q, d = q.shape
+    block_k = tfa.KERNELS["tf32x3"].blocks(d)[1]
     t_k = k.shape[0]
     scale_log2 = np.float32(d**-0.5 * np.log2(np.e))
     m = np.full((t_q, 1), np.float32(-1e30))

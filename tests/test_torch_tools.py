@@ -44,11 +44,14 @@ def tracer():
 
 def _quiet_watchdog():
     """Clear the singleton watchdog's alerts that earlier test modules in
-    this process left: their learning records and the feeds of their
-    Federations never closed (anomalous stations, runs left ACTIVE)."""
+    this process left: their learning records, the feeds of their
+    Federations never closed (anomalous stations, runs left ACTIVE), and
+    the metric history its windowed rules read (retraces counted there
+    would raise ``recompile_storm`` here)."""
     LEARNING.clear()
     with WATCHDOG._lock:
         leaked = [k for k in WATCHDOG._feeds if k.startswith("federation-")]
+        WATCHDOG._metric_history.clear()
     for key in leaked:
         WATCHDOG.unregister_feed(key)
     WATCHDOG.evaluate()

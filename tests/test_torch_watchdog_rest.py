@@ -28,8 +28,11 @@ def srv():
     from vantage6_tpu_torch.runtime.learning import LEARNING
 
     LEARNING.clear()
-    with WATCHDOG._lock:  # ... nor the Federations they never closed
+    with WATCHDOG._lock:  # ... nor the Federations they never closed,
+        # nor the metric history they moved (their retraces would raise
+        # recompile_storm in this server's first evaluations)
         leaked = [k for k in WATCHDOG._feeds if k.startswith("federation-")]
+        WATCHDOG._metric_history.clear()
     for key in leaked:
         WATCHDOG.unregister_feed(key)
     app = ServerApp()

@@ -9,10 +9,11 @@
 // acc in f32, p rounded to v's dtype before p.v, and the output
 // acc / (l > 0 ? l : 1) in q's dtype, so fully masked rows are exactly 0.
 //
-// Which calls it serves: f32 (the tensor cores would round it to TF32) and
-// D = 8 (below wgmma's k16 depth). bf16 at D >= 16 goes to the tensor-core
-// kernel in flash_attention_tc.cu; this one still takes bf16 at every D, so
-// the two can be held against each other on the same inputs.
+// Which calls it serves: none by default. It was the first port, kept for
+// f32 and bf16 at D = 8-128 (powers of two) behind variant="cuda_core" in
+// the wrapper, so that the tensor-core kernels (flash_attention_tc.cu for
+// bf16, flash_attention_tf32.cu for f32, at every D up to 256) can be held
+// against it and timed beside it on the same inputs.
 //
 // Design. One thread block of 128 threads per (b*h, 64-row query tile).
 // The query tile is staged once in shared memory as f32; the block then

@@ -1,25 +1,43 @@
 // Flash-attention forward on the tensor cores of NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel vantage6_tpu/ops/flash_attention.py::_kernel
-// (launched by _flash_forward through pl.pallas_call) for bf16 inputs at head
-// dims 16, 32, 64 and 128; flash_attention.cu, on the CUDA cores, keeps f32
-// (tensor cores would round it to TF32) and D = 8 (below wgmma's k16 depth).
-// It computes the same function: online-softmax attention over [B*H, T, D]
-// with causal masking by global position (q_offset + row >= k_offset + col),
-// padded keys masked against k_valid = Tk, masked scores giving p = 0
-// exactly (the TPU kernel's -1e30; -inf here), the running max floored at
-// -1e20, m, l and acc in f32 with l summed from the f32 p, p rounded to bf16
-// before p.v, and the output acc / (l > 0 ? l : 1), so fully masked rows are
-// exactly 0. The running max is kept in log2 units and scale * log2(e) is
-// folded into one FMA, p = exp2(s * scale * log2(e) - m) on the
-// special-function unit: the same p as exp(s * scale - m) to a few f32 ulps,
-// far below the bf16 rounding that follows. It needs scale > 0.
+// (launched by _flash_forward through pl.pallas_call) for bf16 inputs at
+// every head dim from 8 to 256 in steps of 8 (the wrapper zero-pads any
+// other D up to a multiple of 8). It is instantiated at widths W = 16, 32,
+// 64, 128 and 256; a call at head dim d runs the narrowest W >= d, loads
+// the true d columns of each row and zero-fills the shared-memory tile up
+// to W, so the padded depth adds exactly 0 to every score and the padded
+// output columns, never stored, are 0. It computes the same function:
+// online-softmax attention over [B*H, T, D] with causal masking by global
+// position (q_offset + row >= k_offset + col), padded keys masked against
+// k_valid = Tk, masked scores giving p = 0 exactly (the TPU kernel's -1e30;
+// -inf here), the running max floored at -1e20, m, l and acc in f32 with l
+// summed from the f32 p, p rounded to bf16 before p.v, and the output
+// acc / (l > 0 ? l : 1), so fully masked rows are exactly 0. The running
+// max is kept in log2 units and scale * log2(e) is folded into one FMA,
+// p = exp2(s * scale * log2(e) - m) on the special-function unit: the same
+// p as exp(s * scale - m) to a few f32 ulps, far below the bf16 rounding
+// that follows. The max is that of the scaled scores, so every finite
+// scale gives the TPU kernel's softmax: at scale 0 every visible p is 1,
+// and a negative scale is applied as |scale| to scores of -q (the block
+// negates its Q tile once in shared memory: exact in bf16, and the q.k
+// sums come out exactly negated), so the FMA fold stays exact.
 //
-// Bound at the slice's full width (B=16, H=8, T=1024, D=128, causal): the
-// visible score entries need 4*D*BH*T*(T+1)/2 = 3.44e10 operations, 34.8 us
-// at the 989 TFLOP/s bf16 tensor-core peak; q, k, v and o move 134 MB, 40.1
-// us at 3.35 TB/s. Bytes and operations are close, so both products have to
-// run on the tensor cores and the loads have to overlap them.
+// Bounds (H100 SXM: 989 TFLOP/s bf16, 3.35 TB/s, 132 SMs at 1.98 GHz, 16
+// ex2 a clock per SM). At [B=16, H=8, T=1024, D=128] causal the visible
+// score entries need 4*D*BH*T*(T+1)/2 = 3.44e10 operations, 34.8 us at the
+// tensor-core peak; q, k, v and o move 134 MB, 40.1 us; their 6.72e7 ex2
+// take 16.1 us. Bytes and products are close, so both products run on the
+// tensor cores and the loads overlap them. At D = 8 the same scores need
+// 16 times fewer products and bytes (2.5 us of bytes) but the same 6.72e7
+// ex2: the special-function unit bounds it at 16.1 us. D = 8 runs the
+// W = 16 instantiation (q.k over a zero-filled k16 depth; P.V at n16, half
+// of it on zero columns): the exp rate, not the tensor cores, is what it
+// spends, so the design spends no ex2 on invisible tiles (skipped whole,
+// below) and issues each slice's ex2 while the tensor cores run the slice
+// before. Moving part of the exp onto the FMA pipes is a later change.
+// m64n8k16 (wgmma at n = 8, V as it is) was not used: it needs V in the
+// unswizzled layout, a second layout for one width that the exp bounds.
 //
 // Design.
 // - One block of two consumer warpgroups (256 threads) per (b*h, 128-row
@@ -27,21 +45,26 @@
 //   tiles in reverse, so the heaviest causal tiles start first and the tail
 //   of the grid is short.
 // - S = Q K^T is wgmma m64n64k16 with both operands K-major in shared memory
-//   (Q and K are [T, D] row-major). O += P V is wgmma m64nDk16 with P from
-//   registers: the S accumulator, after the softmax and the cast to bf16, is
-//   already wgmma's register A fragment for each k16 slice; V is the B
-//   operand, MN-major (transposed) from shared memory.
+//   (Q and K are [T, D] row-major), over all W / 16 k16 steps: those past
+//   the true d add 0 (skipping them under a runtime condition made ptxas
+//   serialise the products). O += P V is wgmma m64nWk16 (two m64n128k16
+//   at W = 256)
+//   with P from registers: the S accumulator, after the softmax and the
+//   cast to bf16, is already wgmma's register A fragment for each k16
+//   slice; V is the B operand, MN-major (transposed) from shared memory.
 // - Tiles stay bf16 in shared memory, in the swizzled layout wgmma reads
-//   (128-byte swizzle for D >= 64, 64-byte for D = 32, 32-byte for D = 16).
+//   (128-byte swizzle for W >= 64, 64-byte for W = 32, 32-byte for W = 16).
 //   Q is loaded once per block; K/V tiles of 64 keys move through a ring of
 //   two stages by 16-byte cp.async, the next tile in flight while the
-//   current one is multiplied. Rows past Tq or Tk are zero-filled by the
-//   copy, so the wrapper makes no padding copies. At D = 128 a block holds
-//   32 KB of Q and 64 KB of K/V stages: two blocks fit on one SM.
+//   current one is multiplied. Rows past Tq or Tk and columns past d are
+//   zero-filled by the copy, so the wrapper makes no padding copies. At
+//   W = 128 a block holds 32 KB of Q and 64 KB of K/V stages: two blocks
+//   fit on one SM. At W = 256 it holds 64 KB of Q and 128 KB of stages, and
+//   the O accumulator takes 128 registers a thread: one block per SM.
 // - The softmax runs in registers: each accumulator row lies on the 4 lanes
 //   of a quad, so row max and row sum are two xor shuffles. P is built one
 //   k16 slice at a time, each slice's wgmma issued as soon as it is packed,
-//   which keeps D = 128 within the 128 registers that two blocks per SM
+//   which keeps W = 128 within the 128 registers that two blocks per SM
 //   allow.
 // - Each key tile is classified per warpgroup: fully visible (no mask
 //   work), partly visible (per-element causal and k_valid mask), or
@@ -49,6 +72,7 @@
 //   horizon of the whole block are never loaded.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cmath>
 #include <stdint.h>
 
 namespace {
@@ -59,16 +83,16 @@ constexpr int BLOCK_K = 64;   // keys per K/V tile
 constexpr int THREADS = 256;
 constexpr int STAGES = 2;     // K/V ring in shared memory (three stages
                               // leave room for one block per SM: slower)
-constexpr int MIN_BLOCKS = 2;  // blocks per SM the registers must allow
 constexpr float NEG_INF = -1e30f;
 constexpr float M_FLOOR = -1e20f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // A [rows, D] bf16 tile in shared memory in wgmma's canonical swizzled
-// layout: D is cut into column blocks of ATOM elements (one swizzle row of
-// ROW_BYTES), each block stores its rows ROW_BYTES apart, and the 16-byte
-// chunk c of row r lands at chunk c ^ f(r) (see swizzle()). Tiles start on
-// 1024-byte boundaries, the period of the widest pattern.
+// layout (D is the instantiated width W): D is cut into column blocks of
+// ATOM elements (one swizzle row of ROW_BYTES), each block stores its rows
+// ROW_BYTES apart, and the 16-byte chunk c of row r lands at chunk c ^ f(r)
+// (see swizzle()). Tiles start on 1024-byte boundaries, the period of the
+// widest pattern.
 template <int D>
 struct Layout {
   static constexpr int ATOM = D < 64 ? D : 64;
@@ -82,6 +106,9 @@ struct Layout {
   static constexpr uint32_t Q_BYTES = BLOCK_Q * D * 2;
   static constexpr uint32_t KV_BYTES = BLOCK_K * D * 2;
   static constexpr uint32_t SMEM_BYTES = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // blocks per SM the registers must allow: at W = 256 the O accumulator
+  // alone is 128 registers a thread
+  static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;
 };
 
 // The hardware's swizzle on shared-memory byte addresses: bits [4, 4+b) xor
@@ -107,12 +134,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copy rows [row0, row0 + ROWS) of a row-major [t, D] matrix into a swizzled
-// tile at shared address dst. Rows at or past t are zero-filled.
+// Copy rows [row0, row0 + ROWS) of a row-major [t, d] matrix (d a multiple
+// of 8, at most D) into a swizzled W = D tile at shared address dst. Rows at
+// or past t and columns at or past d are zero-filled.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src, int row0,
-                                          int t, int tid) {
+                                          int t, int d, int tid) {
   using L = Layout<D>;
   constexpr int N = ROWS * L::CHUNKS;
 #pragma unroll
@@ -123,10 +151,38 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
       const int cc = c % L::CHUNKS;
       const uint32_t off = (cc / L::ATOM_CHUNKS) * ROWS * L::ROW_BYTES +
                            row * L::ROW_BYTES + (cc % L::ATOM_CHUNKS) * 16;
-      const bool in = row0 + row < t;
+      const bool in = row0 + row < t && cc * 8 < d;
       const __nv_bfloat16* g =
-          src + static_cast<size_t>(in ? row0 + row : 0) * D + cc * 8;
+          src + (in ? static_cast<size_t>(row0 + row) * d + cc * 8 : 0);
       cp_async16(dst + swizzle(off, L::MASK), g, in ? 16 : 0);
+    }
+  }
+}
+
+// Flip the sign of the chunks of a [ROWS, D] tile that this thread copied
+// with load_tile (so no barrier is needed between them): -x is exact in
+// bf16, and so is every product and sum of q.k with q negated.
+template <int D, int ROWS>
+__device__ __forceinline__ void negate_tile(uint32_t tile, int tid) {
+  using L = Layout<D>;
+  constexpr int N = ROWS * L::CHUNKS;
+#pragma unroll
+  for (int i = 0; i < (N + THREADS - 1) / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    if (N % THREADS == 0 || c < N) {
+      const int row = c / L::CHUNKS;
+      const int cc = c % L::CHUNKS;
+      const uint32_t off = (cc / L::ATOM_CHUNKS) * ROWS * L::ROW_BYTES +
+                           row * L::ROW_BYTES + (cc % L::ATOM_CHUNKS) * 16;
+      const uint32_t addr = tile + swizzle(off, L::MASK);
+      uint32_t x0, x1, x2, x3;
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(x0), "=r"(x1), "=r"(x2), "=r"(x3)
+                   : "r"(addr));
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+                   "r"(x0 ^ 0x80008000u), "r"(x1 ^ 0x80008000u),
+                   "r"(x2 ^ 0x80008000u), "r"(x3 ^ 0x80008000u)
+                   : "memory");
     }
   }
 }
@@ -266,10 +322,11 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
         "r"(1));
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t desc_b) {
+// m64n128k16 into accumulator entries [OFF, OFF + 64) of d
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -279,21 +336,47 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]),
+        "+f"(d[OFF + 11]), "+f"(d[OFF + 12]), "+f"(d[OFF + 13]),
+        "+f"(d[OFF + 14]), "+f"(d[OFF + 15]), "+f"(d[OFF + 16]),
+        "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+        "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]),
+        "+f"(d[OFF + 23]), "+f"(d[OFF + 24]), "+f"(d[OFF + 25]),
+        "+f"(d[OFF + 26]), "+f"(d[OFF + 27]), "+f"(d[OFF + 28]),
+        "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
+        "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]),
+        "+f"(d[OFF + 35]), "+f"(d[OFF + 36]), "+f"(d[OFF + 37]),
+        "+f"(d[OFF + 38]), "+f"(d[OFF + 39]), "+f"(d[OFF + 40]),
+        "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]),
+        "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]),
+        "+f"(d[OFF + 47]), "+f"(d[OFF + 48]), "+f"(d[OFF + 49]),
+        "+f"(d[OFF + 50]), "+f"(d[OFF + 51]), "+f"(d[OFF + 52]),
+        "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
+        "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]),
+        "+f"(d[OFF + 59]), "+f"(d[OFF + 60]), "+f"(d[OFF + 61]),
+        "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  wgmma_rs_n128<0>(d, a, desc_b);
+}
+
+// W = 256: two m64n128k16 products, on V's column blocks 0-1 and 2-3 (a
+// column block of 64 values is BLOCK_K rows of 128 bytes); accumulator
+// entries 64-127 are columns 128-255, as in m64n256k16's own layout.
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  wgmma_rs_n128<0>(d, a, desc_b);
+  wgmma_rs_n128<64>(d, a, desc_b + ((2 * BLOCK_K * 128) >> 4));
 }
 
 // 2^x on the special-function unit (2 ulp; flushes denormals, which are
@@ -309,15 +392,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+// D is the instantiated width W; d (a multiple of 8, at most D) is the
+// head dim of q, k, v and o, the row stride in device memory. PAD = false
+// is the instantiation for d == D, where d is a constant (the padded one
+// spends registers on the runtime stride and column bounds).
+template <int D, bool PAD>
+__global__ void __launch_bounds__(THREADS, Layout<D>::MIN_BLOCKS)
 flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        __nv_bfloat16* __restrict__ o, int t_q, int t_k,
-                       int q_offset, int k_offset, int causal,
-                       float scale_log2) {
+                       int d_arg, int q_offset, int k_offset, int causal,
+                       float scale_log2, int negate_q) {
   using L = Layout<D>;
+  const int d = PAD ? d_arg : D;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) &
@@ -332,10 +420,10 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
 
-  const __nv_bfloat16* qg = q + static_cast<size_t>(bh) * t_q * D;
-  const __nv_bfloat16* kg = k + static_cast<size_t>(bh) * t_k * D;
-  const __nv_bfloat16* vg = v + static_cast<size_t>(bh) * t_k * D;
-  __nv_bfloat16* og = o + static_cast<size_t>(bh) * t_q * D;
+  const __nv_bfloat16* qg = q + static_cast<size_t>(bh) * t_q * d;
+  const __nv_bfloat16* kg = k + static_cast<size_t>(bh) * t_k * d;
+  const __nv_bfloat16* vg = v + static_cast<size_t>(bh) * t_k * d;
+  __nv_bfloat16* og = o + static_cast<size_t>(bh) * t_q * d;
 
   // keys any row of this block can see (k_valid = t_k; causal horizon)
   int k_end = t_k;
@@ -345,12 +433,17 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const int n_kt = k_end > 0 ? (k_end + BLOCK_K - 1) / BLOCK_K : 0;
 
-  load_tile<D, BLOCK_Q>(q_s, qg, q0, t_q, tid);
+  load_tile<D, BLOCK_Q>(q_s, qg, q0, t_q, d, tid);
+  cp_async_commit();
   if (n_kt > 0) {
-    load_tile<D, BLOCK_K>(k_s, kg, 0, t_k, tid);
-    load_tile<D, BLOCK_K>(v_s, vg, 0, t_k, tid);
+    load_tile<D, BLOCK_K>(k_s, kg, 0, t_k, d, tid);
+    load_tile<D, BLOCK_K>(v_s, vg, 0, t_k, d, tid);
   }
   cp_async_commit();
+  if (negate_q) {  // once a block: the chunks this thread copied
+    cp_async_wait<1>();
+    negate_tile<D, BLOCK_Q>(q_s, tid);
+  }
 
   // this warpgroup's query rows, and the global positions of the valid ones
   const int wq0 = q0 + wg * WG_ROWS;
@@ -376,9 +469,9 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     if (kt + 1 < n_kt) {  // the next tile, in flight during this one
       const int next = (kt + 1) % STAGES;
       load_tile<D, BLOCK_K>(k_s + next * L::KV_BYTES, kg, (kt + 1) * BLOCK_K,
-                            t_k, tid);
+                            t_k, d, tid);
       load_tile<D, BLOCK_K>(v_s + next * L::KV_BYTES, vg, (kt + 1) * BLOCK_K,
-                            t_k, tid);
+                            t_k, d, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // every group but the newest: tile kt has landed
@@ -400,6 +493,8 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
       fence_regs(s);
       wgmma_fence();
+      // every k16 step, also past d on zero-filled columns (they add 0): a
+      // product issued under a condition makes ptxas wait for each one
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)
         wgmma_ss_n64(s, kmajor_desc<D>(q_s, BLOCK_Q, wg * WG_ROWS, ks),
@@ -408,15 +503,22 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       wgmma_wait_all();
       fence_regs(s);
 
-      // masked scores -inf: p = exp2(-inf) = 0, as exp(-1e30 - m) is
+      // scores in log2 units are s * c, c = |scale| * log2(e) >= 0 (a
+      // negative scale negated Q instead). A fully visible tile keeps s and
+      // folds c into the exp's FMA: max(s * c) = c * max(s) exactly, as
+      // rounding is monotone. A partly visible tile is scaled first and its
+      // masked scores set to -inf (p = exp2(-inf) = 0, as exp(-1e30 - m)
+      // is, also at c = 0); then c = 1.
+      float c = scale_log2;
       if (!full) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int col = k0 + (i / 4) * 8 + 2 * (lane % 4) + (i % 2);
           const int pos = pos0 + 8 * ((i / 2) % 2);
           const bool ok = col < t_k && (!causal || pos >= k_offset + col);
-          s[i] = ok ? s[i] : -INFINITY;
+          s[i] = ok ? s[i] * scale_log2 : -INFINITY;
         }
+        c = 1.f;
       }
 
       // online softmax on the thread's two rows i, m in log2 units
@@ -429,7 +531,7 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
           mx = fmaxf(mx, fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        m_new[i] = fmaxf(fmaxf(m[i], mx * scale_log2), m_floor);
+        m_new[i] = fmaxf(fmaxf(m[i], mx * c), m_floor);
         const float corr = exp2_approx(m[i] - m_new[i]);
         l[i] *= corr;
         m[i] = m_new[i];
@@ -456,9 +558,9 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
           const int n = 2 * kk + r / 2;
           const int i = r % 2;
           const float p0 =
-              exp2_approx(fmaf(s[4 * n + 2 * i], scale_log2, -m_new[i]));
+              exp2_approx(fmaf(s[4 * n + 2 * i], c, -m_new[i]));
           const float p1 =
-              exp2_approx(fmaf(s[4 * n + 2 * i + 1], scale_log2, -m_new[i]));
+              exp2_approx(fmaf(s[4 * n + 2 * i + 1], c, -m_new[i]));
           l[i] += p0 + p1;  // the f32 p, before the bf16 rounding
           a[r] = pack_bf16(p0, p1);
         }
@@ -485,63 +587,70 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     if (row >= w_rows) continue;
     const float denom = l[i] > 0.f ? l[i] : 1.f;
     __nv_bfloat16* dst =
-        og + static_cast<size_t>(wq0 + row) * D + 2 * (lane % 4);
+        og + static_cast<size_t>(wq0 + row) * d + 2 * (lane % 4);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(
-          acc[4 * n + 2 * i] / denom, acc[4 * n + 2 * i + 1] / denom);
+      if (8 * n < d)  // columns past d are the zero padding's
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * i] / denom,
+                                  acc[4 * n + 2 * i + 1] / denom);
   }
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int t_q, int t_k, int q_offset, int k_offset,
-                   int causal, float scale, cudaStream_t stream) {
+                   int bh, int t_q, int t_k, int d, int q_offset,
+                   int k_offset, int causal, float scale,
+                   cudaStream_t stream) {
   // + 1024: the kernel aligns its tiles to 1024 bytes
   const size_t bytes = Layout<D>::SMEM_BYTES + 1024;
+  auto kernel = d == D ? flash_fwd_wgmma_kernel<D, false>
+                       : flash_fwd_wgmma_kernel<D, true>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (t_q + BLOCK_Q - 1) / BLOCK_Q);
-  flash_fwd_wgmma_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      t_q, t_k, q_offset, k_offset, causal, scale * LOG2E);
+      t_q, t_k, d, q_offset, k_offset, causal, std::fabs(scale) * LOG2E,
+      scale < 0.f);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o: [bh, t_q, d]; k, v: [bh, t_k, d]; all contiguous bfloat16 (dtype 1)
-// with 16-byte aligned data. Launches on `stream` and returns the launch
-// status (cudaGetLastError); it does not synchronise.
+// with 16-byte aligned data, d a multiple of 8 from 8 to 256, any finite
+// scale. Launches on `stream` and returns the launch status
+// (cudaGetLastError); it does not synchronise.
 extern "C" int v6t_flash_attention_fwd_tc(const void* q, const void* k,
                                           const void* v, void* o, int dtype,
                                           int bh, int t_q, int t_k, int d,
                                           int q_offset, int k_offset,
                                           int causal, float scale,
                                           void* stream) {
-  if (dtype != 1 || bh <= 0 || t_q <= 0 || t_k < 0)
+  if (dtype != 1 || bh <= 0 || t_q <= 0 || t_k < 0 || d < 8 || d > 256 ||
+      d % 8 != 0 || !std::isfinite(scale))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16:
-      return launch<16>(q, k, v, o, bh, t_q, t_k, q_offset, k_offset, causal,
-                        scale, s);
-    case 32:
-      return launch<32>(q, k, v, o, bh, t_q, t_k, q_offset, k_offset, causal,
-                        scale, s);
-    case 64:
-      return launch<64>(q, k, v, o, bh, t_q, t_k, q_offset, k_offset, causal,
-                        scale, s);
-    case 128:
-      return launch<128>(q, k, v, o, bh, t_q, t_k, q_offset, k_offset, causal,
-                         scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  // the narrowest instantiated width W >= d
+  if (d <= 16)
+    return launch<16>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset,
+                      causal, scale, s);
+  if (d <= 32)
+    return launch<32>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset,
+                      causal, scale, s);
+  if (d <= 64)
+    return launch<64>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset,
+                      causal, scale, s);
+  if (d <= 128)
+    return launch<128>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset,
+                       causal, scale, s);
+  return launch<256>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset, causal,
+                     scale, s);
 }
 
 extern "C" const char* v6t_cuda_error_string(int err) {

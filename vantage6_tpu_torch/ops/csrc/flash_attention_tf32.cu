@@ -2,8 +2,14 @@
 // (sm_90a): mma.sync TF32, three passes per product.
 //
 // Replaces the Pallas TPU kernel vantage6_tpu/ops/flash_attention.py::_kernel
-// (launched by _flash_forward through pl.pallas_call) for f32 inputs at head
-// dims 8, 16, 32, 64 and 128. It computes the same function: online-softmax
+// (launched by _flash_forward through pl.pallas_call) for f32 inputs at
+// every head dim from 8 to 256 in steps of 8 (the wrapper zero-pads any
+// other D up to a multiple of 8). It is instantiated at widths W = 8, 16,
+// 32, 64, 128 and 256; a call at head dim d runs the narrowest W >= d,
+// loads the true d columns of each row and zero-fills the shared-memory
+// tile up to W, skips the k-steps and output n-tiles that lie wholly past d,
+// and stores only the true d columns. It computes the same function:
+// online-softmax
 // attention over [B*H, T, D] with causal masking by global position
 // (q_offset + row >= k_offset + col), padded keys masked against
 // k_valid = Tk, masked scores giving p = 0 exactly (the TPU kernel's -1e30;
@@ -41,9 +47,15 @@
 // - One block of WARPS warps per (b*h, BLOCK_Q-row query tile); each warp
 //   owns 16 query rows and walks the key tiles on its own. The grid runs
 //   the query tiles in reverse, so the heaviest causal tiles start first.
-//   At D = 128 a block holds 72 KB of Q and two stages of K and V, 138 KB:
+//   At W = 128 a block holds 72 KB of Q and two stages of K and V, 138 KB:
 //   one block of 8 warps per SM (64-key tiles were faster than 32-key
 //   tiles, and than 12 warps with 32-key tiles, in a sweep on the card).
+//   At W = 256, 64-key tiles would need 272 KB, so the key tiles are 16
+//   keys: 136 KB of Q and 66 KB of stages, 202 KB, one block of 8 warps
+//   per SM; the O accumulator is 128 registers a thread. In a sweep on an
+//   H100 (kernel_sweep.py tiles) at [8, 8, 1024, 256] causal, 8 warps over
+//   16-key tiles took 0.74 ms, 6 warps over 24 keys 0.85, 6 over 16 0.92,
+//   4 over 16 0.94 and 4 over 32 1.26.
 // - Q is copied once per block; K/V tiles of BLOCK_K keys move through a
 //   ring of two stages by 16-byte cp.async, the next tile in flight while
 //   the current one is multiplied. Rows past Tq or Tk are zero-filled by
@@ -70,22 +82,24 @@
 //   (skipped: it would add exactly 0). Tiles past the causal horizon of the
 //   whole block are never loaded.
 #include <cuda_runtime.h>
+#include <cmath>
 #include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 8;              // warps a block, 16 query rows each
-constexpr int THREADS = 32 * WARPS;
-constexpr int BLOCK_Q = 16 * WARPS;   // query rows a block
-constexpr int BLOCK_K = 64;           // keys a K/V tile
-constexpr int SLICES = BLOCK_K / 8;   // 8-key slices: S n-tiles, P V k-steps
 constexpr int STAGES = 2;             // K/V ring in shared memory
 constexpr float NEG_INF = -1e30f;
 constexpr float M_FLOOR = -1e20f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// Tiles and shared-memory layout of the instantiation at width W = D.
 template <int D>
 struct Layout {
+  static constexpr int WARPS = 8;             // 16 query rows each
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BLOCK_Q = 16 * WARPS;  // query rows a block
+  static constexpr int BLOCK_K = D == 256 ? 16 : 64;  // keys a K/V tile
+  static constexpr int SLICES = BLOCK_K / 8;  // S n-tiles, P V k-steps
   // Q and K fragment loads: a phase of 8 lanes (16-byte loads) reads rows
   // g and g + 1, so their starts must be 16 banks apart; at D = 8 a phase
   // of 16 lanes (8-byte loads) reads rows g .. g + 3, 8 banks apart
@@ -118,11 +132,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copy rows [row0, row0 + ROWS) of a row-major [t, D] f32 matrix into a
-// tile with rows STRIDE floats apart. Rows at or past t are zero-filled.
+// Copy rows [row0, row0 + ROWS) of a row-major [t, d] f32 matrix (d a
+// multiple of 8, at most D) into a W = D tile with rows STRIDE floats
+// apart. Rows at or past t and columns at or past d are zero-filled.
 template <int D, int ROWS, int STRIDE>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int t, int tid) {
+                                          int row0, int t, int d, int tid) {
+  constexpr int THREADS = Layout<D>::THREADS;
   constexpr int CHUNKS = D / 4;  // 16-byte chunks a row
   constexpr int N = ROWS * CHUNKS;
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -132,9 +148,9 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
     if (N % THREADS == 0 || c < N) {
       const int row = c / CHUNKS;
       const int cc = c % CHUNKS;
-      const bool in = row0 + row < t;
+      const bool in = row0 + row < t && cc * 4 < d;
       const float* g =
-          src + static_cast<size_t>(in ? row0 + row : 0) * D + cc * 4;
+          src + (in ? static_cast<size_t>(row0 + row) * d + cc * 4 : 0);
       cp_async16(base + 4 * (row * STRIDE + cc * 4), g, in ? 16 : 0);
     }
   }
@@ -206,16 +222,23 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+// D is the instantiated width W; d (a multiple of 8, at most D) is the
+// head dim of q, k, v and o, the row stride in device memory. PAD = false
+// is the instantiation for d == D, where d is a constant.
+template <int D, bool PAD>
+__global__ void __launch_bounds__(Layout<D>::THREADS, 1)
 flash_fwd_tf32x3_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o,
-                        int t_q, int t_k, int q_offset, int k_offset,
-                        int causal, float scale_log2) {
+                        int t_q, int t_k, int d_arg, int q_offset,
+                        int k_offset, int causal, float scale_log2) {
   using L = Layout<D>;
+  const int d = PAD ? d_arg : D;
   constexpr int QKV = L::QK_VEC;
   constexpr int NV = L::NV;
+  constexpr int BLOCK_Q = L::BLOCK_Q;
+  constexpr int BLOCK_K = L::BLOCK_K;
+  constexpr int SLICES = L::SLICES;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;
   float* k_s = q_s + L::Q_FLOATS;             // STAGES K tiles
@@ -229,10 +252,10 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
   const int g = lane / 4;
   const int t = lane % 4;
 
-  const float* qg = q + static_cast<size_t>(bh) * t_q * D;
-  const float* kg = k + static_cast<size_t>(bh) * t_k * D;
-  const float* vg = v + static_cast<size_t>(bh) * t_k * D;
-  float* og = o + static_cast<size_t>(bh) * t_q * D;
+  const float* qg = q + static_cast<size_t>(bh) * t_q * d;
+  const float* kg = k + static_cast<size_t>(bh) * t_k * d;
+  const float* vg = v + static_cast<size_t>(bh) * t_k * d;
+  float* og = o + static_cast<size_t>(bh) * t_q * d;
 
   // keys any row of this block can see (k_valid = t_k; causal horizon)
   int k_end = t_k;
@@ -242,10 +265,10 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
   }
   const int n_kt = k_end > 0 ? (k_end + BLOCK_K - 1) / BLOCK_K : 0;
 
-  load_tile<D, BLOCK_Q, L::QK_STRIDE>(q_s, qg, q0, t_q, tid);
+  load_tile<D, BLOCK_Q, L::QK_STRIDE>(q_s, qg, q0, t_q, d, tid);
   if (n_kt > 0) {
-    load_tile<D, BLOCK_K, L::QK_STRIDE>(k_s, kg, 0, t_k, tid);
-    load_tile<D, BLOCK_K, L::V_STRIDE>(v_s, vg, 0, t_k, tid);
+    load_tile<D, BLOCK_K, L::QK_STRIDE>(k_s, kg, 0, t_k, d, tid);
+    load_tile<D, BLOCK_K, L::V_STRIDE>(v_s, vg, 0, t_k, d, tid);
   }
   cp_async_commit();
 
@@ -272,9 +295,9 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
     if (kt + 1 < n_kt) {  // the next tile, in flight during this one
       const int next = (kt + 1) % STAGES;
       load_tile<D, BLOCK_K, L::QK_STRIDE>(k_s + next * L::K_FLOATS, kg,
-                                          (kt + 1) * BLOCK_K, t_k, tid);
+                                          (kt + 1) * BLOCK_K, t_k, d, tid);
       load_tile<D, BLOCK_K, L::V_STRIDE>(v_s + next * L::V_FLOATS, vg,
-                                         (kt + 1) * BLOCK_K, t_k, tid);
+                                         (kt + 1) * BLOCK_K, t_k, d, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // every group but the newest: tile kt has landed
@@ -294,7 +317,8 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
                           2 * t * L::V_STRIDE + NV * g;
 
       // S = Q K^T: slice j holds keys [8j, 8j + 8) of the tile; each load
-      // of QKV columns serves QKV / 2 k-steps
+      // of QKV columns serves QKV / 2 k-steps; step pairs wholly past d
+      // read zero-filled columns and add 0, so they are skipped
       float s[SLICES][4];
 #pragma unroll
       for (int j = 0; j < SLICES; ++j)
@@ -302,6 +326,7 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
       for (int c = 0; c < D / (4 * QKV); ++c) {
+        if (4 * QKV * c >= d) continue;
         float qa[QKV], qb[QKV];  // rows g and g + 8
         lds(qa, q_w + 4 * QKV * c);
         lds(qb, q_w + 8 * L::QK_STRIDE + 4 * QKV * c);
@@ -370,6 +395,7 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
         const float* vb = vt_s + 8 * kk * L::V_STRIDE;
 #pragma unroll
         for (int c = 0; c < D / (8 * NV); ++c) {
+          if (8 * NV * c >= d) continue;  // output columns past d
           float v0[NV], v1[NV];  // keys 2t and 2t + 1, NV n-tiles
           lds(v0, vb + 8 * NV * c);
           lds(v1, vb + L::V_STRIDE + 8 * NV * c);
@@ -395,11 +421,13 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
     const int row = g + 8 * r;
     if (row >= w_rows) continue;
     const float inv = 1.f / (l[r] > 0.f ? l[r] : 1.f);
-    float* dst = og + static_cast<size_t>(wq0 + row) * D;
+    float* dst = og + static_cast<size_t>(wq0 + row) * d;
 #pragma unroll
     for (int c = 0; c < D / (8 * NV); ++c)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
+        // NV columns from a multiple of NV: all below d or all past it
+        if (8 * NV * c + NV * (2 * t + e) >= d) continue;
         float out[NV];
 #pragma unroll
         for (int i = 0; i < NV; ++i) out[i] = acc[NV * c + i][2 * r + e] * inv;
@@ -417,18 +445,22 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int t_q, int t_k, int q_offset, int k_offset,
-                   int causal, float scale, cudaStream_t stream) {
+                   int bh, int t_q, int t_k, int d, int q_offset,
+                   int k_offset, int causal, float scale,
+                   cudaStream_t stream) {
+  using L = Layout<D>;
   const size_t bytes = Layout<D>::SMEM_BYTES;
   // above 48 KB a block's dynamic shared memory has to be asked for
+  auto kernel = d == D ? flash_fwd_tf32x3_kernel<D, false>
+                       : flash_fwd_tf32x3_kernel<D, true>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tf32x3_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (t_q + BLOCK_Q - 1) / BLOCK_Q);
-  flash_fwd_tf32x3_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  const dim3 grid(bh, (t_q + L::BLOCK_Q - 1) / L::BLOCK_Q);
+  kernel<<<grid, L::THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), t_q, t_k,
+      static_cast<const float*>(v), static_cast<float*>(o), t_q, t_k, d,
       q_offset, k_offset, causal, scale * LOG2E);
   return cudaGetLastError();
 }
@@ -436,36 +468,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, o: [bh, t_q, d]; k, v: [bh, t_k, d]; all contiguous float32 (dtype 0)
-// with 16-byte aligned data. Launches on `stream` and returns the launch
-// status (cudaGetLastError); it does not synchronise.
+// with 16-byte aligned data, d a multiple of 8 from 8 to 256, any finite
+// scale. Launches on `stream` and returns the launch status
+// (cudaGetLastError); it does not synchronise.
 extern "C" int v6t_flash_attention_fwd_tf32x3(const void* q, const void* k,
                                               const void* v, void* o,
                                               int dtype, int bh, int t_q,
                                               int t_k, int d, int q_offset,
                                               int k_offset, int causal,
                                               float scale, void* stream) {
-  if (dtype != 0 || bh <= 0 || t_q <= 0 || t_k < 0)
+  if (dtype != 0 || bh <= 0 || t_q <= 0 || t_k < 0 || d < 8 || d > 256 ||
+      d % 8 != 0 || !std::isfinite(scale))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 8:
-      return launch<8>(q, k, v, o, bh, t_q, t_k, q_offset, k_offset, causal,
-                       scale, s);
-    case 16:
-      return launch<16>(q, k, v, o, bh, t_q, t_k, q_offset, k_offset, causal,
-                        scale, s);
-    case 32:
-      return launch<32>(q, k, v, o, bh, t_q, t_k, q_offset, k_offset, causal,
-                        scale, s);
-    case 64:
-      return launch<64>(q, k, v, o, bh, t_q, t_k, q_offset, k_offset, causal,
-                        scale, s);
-    case 128:
-      return launch<128>(q, k, v, o, bh, t_q, t_k, q_offset, k_offset, causal,
-                         scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  // the narrowest instantiated width W >= d
+  if (d <= 8)
+    return launch<8>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset, causal,
+                     scale, s);
+  if (d <= 16)
+    return launch<16>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset,
+                      causal, scale, s);
+  if (d <= 32)
+    return launch<32>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset,
+                      causal, scale, s);
+  if (d <= 64)
+    return launch<64>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset,
+                      causal, scale, s);
+  if (d <= 128)
+    return launch<128>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset,
+                       causal, scale, s);
+  return launch<256>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset, causal,
+                     scale, s);
 }
 
 extern "C" const char* v6t_cuda_error_string(int err) {

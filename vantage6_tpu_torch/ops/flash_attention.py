@@ -5,14 +5,17 @@ Counterpart of ``vantage6_tpu/ops/flash_attention.py``, in the same
 ``flash_attention`` is a hand-written CUDA kernel (the port of the Pallas
 ``_kernel``) for CUDA tensors, and its plain PyTorch version
 ``kernel_reference`` for CPU tensors; there is no ``interpret`` argument,
-the device of the tensors decides. Three kernels serve CUDA tensors,
-chosen by ``kernel_variant``: ``csrc/flash_attention_tc.cu`` (wgmma) for
-bf16 at D >= 16, ``csrc/flash_attention_tf32.cu`` (mma.sync in three TF32
-passes, f32 accuracy) for f32 at every D, both on the tensor cores, and
-``csrc/flash_attention.cu`` on the CUDA cores for bf16 at D = 8. The
-backward is ``_attention_bwd``, a plain blockwise
-recompute, as in the JAX package, where it is ``jnp`` and not a Pallas
-kernel.
+the device of the tensors decides. Two kernels serve CUDA tensors, both on
+the tensor cores, chosen by ``kernel_variant``:
+``csrc/flash_attention_tc.cu`` (wgmma) for bf16 and
+``csrc/flash_attention_tf32.cu`` (mma.sync in three TF32 passes, f32
+accuracy) for f32, each at every head dim from 1 to 256: the kernel is
+instantiated at a few widths and zero-fills its tiles from the true D up to
+the next one, and the wrapper zero-pads a D that is not a multiple of 8.
+``csrc/flash_attention.cu``, on the CUDA cores, is reachable by
+``variant="cuda_core"`` only. The backward is ``_attention_bwd``, a plain
+blockwise recompute, as in the JAX package, where it is ``jnp`` and not a
+Pallas kernel.
 
 ``q_offset``/``k_offset`` give the global position of the first query/key
 token, so the same kernel serves monolithic causal attention (offsets 0)
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
 
@@ -29,6 +33,8 @@ from vantage6_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 M_FLOOR = -1e20
+# the widest head dim the kernels take (the Pallas kernel takes any D)
+MAX_HEAD_DIM = 256
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -37,8 +43,11 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 class KernelVariant:
     """One hand-written forward kernel: its library (``_build.SOURCES``),
     C entry point, tiles (BLOCK_Q, BLOCK_K in its source: the plain version
-    at these block sizes rounds p against the same running max), and the
-    dtypes and head dims it is instantiated for."""
+    at these block sizes rounds p against the same running max), the
+    dtypes it takes and the head dims it is instantiated for. A kernel
+    that ``pads`` serves every head dim up to its widest: the one above
+    it, zero-filled in its tiles, and the wrapper pads D to a multiple of 8.
+    ``wide_tiles`` holds the tiles of widths that differ from the rest."""
 
     library: str
     symbol: str
@@ -46,19 +55,38 @@ class KernelVariant:
     block_k: int
     dtypes: tuple
     head_dims: tuple
+    pads: bool = False
+    wide_tiles: tuple = ()  # ((head dim, block_q, block_k), ...)
+
+    def width(self, d: int) -> int | None:
+        """The instantiated head dim that serves head dim ``d``, or None."""
+        if d in self.head_dims:
+            return d
+        if not self.pads or d < 1:
+            return None
+        return next((w for w in self.head_dims if w >= d), None)
+
+    def blocks(self, d: int) -> tuple[int, int]:
+        """(block_q, block_k) of the kernel at head dim ``d``."""
+        w = self.width(d)
+        for width, block_q, block_k in self.wide_tiles:
+            if width == w:
+                return block_q, block_k
+        return self.block_q, self.block_k
 
 
 KERNELS = {
     # wgmma on the tensor cores, cp.async K/V ring (csrc/flash_attention_tc.cu)
     "tensor_core": KernelVariant(
         "flash_attention_tc", "v6t_flash_attention_fwd_tc", 128, 64,
-        (torch.bfloat16,), (16, 32, 64, 128),
+        (torch.bfloat16,), (16, 32, 64, 128, 256), pads=True,
     ),
     # mma.sync m16n8k8 in three TF32 passes, cp.async K/V ring
-    # (csrc/flash_attention_tf32.cu)
+    # (csrc/flash_attention_tf32.cu); 16-key tiles at 256
     "tf32x3": KernelVariant(
         "flash_attention_tf32", "v6t_flash_attention_fwd_tf32x3", 128, 64,
-        (torch.float32,), (8, 16, 32, 64, 128),
+        (torch.float32,), (8, 16, 32, 64, 128, 256), pads=True,
+        wide_tiles=((256, 128, 16),),
     ),
     # f32 FMA on the CUDA cores (csrc/flash_attention.cu)
     "cuda_core": KernelVariant(
@@ -67,17 +95,41 @@ KERNELS = {
     ),
 }
 
+# the kernel that serves each dtype, at every head dim
+_DISPATCH = {torch.bfloat16: "tensor_core", torch.float32: "tf32x3"}
+
 
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
-    """The kernel that serves a CUDA call. bf16 at D >= 16 goes to wgmma;
-    f32 goes to the tensor cores in three TF32 passes at every D (one pass
-    would miss the reference's 2e-5); bf16 at D = 8, below wgmma's k16
-    depth, stays on the CUDA cores."""
-    for variant in ("tensor_core", "tf32x3"):
-        spec = KERNELS[variant]
-        if dtype in spec.dtypes and d in spec.head_dims:
-            return variant
-    return "cuda_core"
+    """The kernel that serves a CUDA call: bf16 goes to wgmma, f32 to the
+    tensor cores in three TF32 passes (one pass would miss the reference's
+    2e-5), at every head dim. bf16 at D = 8, below wgmma's k16 depth, runs
+    the D = 16 instantiation on zero-filled columns."""
+    if dtype not in _DISPATCH:
+        raise ValueError(f"unsupported dtype {dtype} (float32, bfloat16)")
+    return _DISPATCH[dtype]
+
+
+def _check_supported(dtype: torch.dtype, d: int, scale: float,
+                     variant: str) -> KernelVariant:
+    """Raise ValueError unless the kernel ``variant`` takes ``dtype`` at
+    head dim ``d`` with ``scale``; return its ``KernelVariant``. Needs no
+    card."""
+    if dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"unsupported dtype {dtype} (float32, bfloat16)")
+    if not math.isfinite(scale):
+        raise ValueError(f"scale must be finite, not {scale}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {d} > {MAX_HEAD_DIM}: no kernel is instantiated that "
+            "wide (the Pallas kernel takes any D; ROADMAP queue 3, head "
+            "dims above 256)")
+    spec = KERNELS[variant]
+    if dtype not in spec.dtypes or spec.width(d) is None:
+        takes = (f"head dims 1-{spec.head_dims[-1]}" if spec.pads
+                 else f"head dims {spec.head_dims}")
+        raise ValueError(f"the {variant} kernel takes {spec.dtypes} at "
+                         f"{takes}, not {dtype} at {d}")
+    return spec
 
 
 def _default_scale(d: int, scale: float | None) -> float:
@@ -101,10 +153,12 @@ def flash_forward_cuda(q, k, v, q_offset, k_offset, causal, scale,
     """Launch a CUDA kernel: o = softmax(q k^T * scale, masked) v.
 
     Takes contiguous CUDA tensors of one dtype (float32 or bfloat16),
-    q ``[B, H, Tq, D]``, k and v ``[B, H, Tk, D]``; raises on anything the
-    kernel does not take. ``variant`` (a key of ``KERNELS``) defaults to
+    q ``[B, H, Tq, D]``, k and v ``[B, H, Tk, D]``, and any finite scale;
+    raises on anything the kernel does not take.
+    ``variant`` (a key of ``KERNELS``) defaults to
     ``kernel_variant(dtype, D)``. Ragged Tq/Tk are masked inside the
-    kernel."""
+    kernel; a D that is not a multiple of 8 is zero-padded here (one copy
+    of q, k and v) and o sliced back."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
@@ -116,24 +170,20 @@ def flash_forward_cuda(q, k, v, q_offset, k_offset, causal, scale,
             raise ValueError(f"{name} must be [B, H, T, D], got {x.shape}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"unsupported dtype {q.dtype} (float32, bfloat16)")
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"shape mismatch q={q.shape} k={k.shape} v={v.shape}")
     variant = kernel_variant(q.dtype, d) if variant is None else variant
-    spec = KERNELS[variant]
-    if q.dtype not in spec.dtypes or d not in spec.head_dims:
-        raise ValueError(f"the {variant} kernel takes {spec.dtypes} at head "
-                         f"dims {spec.head_dims}, not {q.dtype} at {d}")
-    if variant == "tensor_core" and not scale > 0:
-        raise ValueError(f"the tensor_core kernel takes scale > 0, not {scale}")
+    spec = _check_supported(q.dtype, d, scale, variant)
+    d_pad = -d % 8 if spec.pads else 0
+    if d_pad:
+        q, k, v = (torch.nn.functional.pad(x, (0, d_pad)) for x in (q, k, v))
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
     o = torch.empty_like(q)
     if o.numel() == 0:
-        return o
+        return o[..., :d]
     lib = _build.load(spec.library)
     fn = getattr(lib, spec.symbol)
     if fn.argtypes is None:
@@ -146,14 +196,14 @@ def flash_forward_cuda(q, k, v, q_offset, k_offset, causal, scale,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _KERNEL_DTYPES[q.dtype], b * h, t_q, t_k, d,
+            _KERNEL_DTYPES[q.dtype], b * h, t_q, t_k, d + d_pad,
             int(q_offset), int(k_offset), int(bool(causal)), float(scale),
             stream,
         )
     _build.check(lib, err, f"flash_attention_fwd ({variant}) launch")
     flash_forward_cuda.launches += 1
     flash_forward_cuda.variant_launches[variant] += 1
-    return o
+    return o[..., :d].contiguous() if d_pad else o
 
 
 # kernel launches, in all and per variant; reset by the caller
