@@ -13,8 +13,11 @@ Phases, each of which raises (exit code 1) on failure:
    kernel's own tiles for the head dim: the tensor-core kernel in bf16 and
    the TF32x3 kernel in f32 at each width they are instantiated for, at
    D = 8, 24, 80 and 96 (run on a wider instantiation's zero-filled
-   columns) and at D = 12 (zero-padded by the wrapper), the CUDA-core
-   kernel beside them at the widths it takes (8-128, powers of two);
+   columns), at D = 12 (zero-padded by the wrapper), and above 256 at
+   D = 320 and 512 and at 300 (padded to 304), run in O slabs of at most
+   256 over depth chunks, each slab bit-equal to the first where V's
+   columns repeat its first 256; the CUDA-core kernel beside them at the
+   widths it takes (8-128, powers of two);
    causal and not, Tq and Tk off the tiles, Tq != Tk, ring-hop offsets
    that leave tiles partly visible, keys ahead of queries, a negative
    scale, fully masked rows (exact zeros) at every width; each error
@@ -38,16 +41,23 @@ Phases, each of which raises (exit code 1) on failure:
    station 3 masked in the last: head dim 96 runs the tensor-core kernel
    on zero-filled columns, which must launch rounds x stations x layers
    times and no other kernel at all, and the loss must equal a
-   ``recompute`` round's from the same state within 2^-8;
+   ``recompute`` round's from the same state within 2^-8; (d) the same at
+   a head dim above 256 (``WIDE``: d_model 4096, 8 heads of 512, 2
+   layers, 4 stations of 2 x 1024 tokens, bf16, 2 rounds): the
+   tensor-core kernel's O slabs over depth chunks, rounds x stations x
+   layers launches of it and no other kernel, the loss against a
+   ``recompute`` round's within 2^-8;
 5. times on the card: ms per round, tokens/s and peak memory of each run,
    and each kernel's ms per launch at [B, 8, 1024, D] causal (``TIMED``):
    at the main path's D = 128 beside the CUDA-core kernel on the same
    tensors, in turns (bf16: tensor-core; f32: TF32x3); bf16 at D = 8, the
-   tensor-core kernel beside the CUDA-core one; both dtypes at D = 96 and
-   at D = 256 (batch 8); each with its plain version's time, the bound
-   (bytes, tensor-core products or the exps on the special-function
-   units, whichever is largest), and ``scaled_dot_product_attention`` in
-   the same dtype as a yardstick (the port never calls it);
+   tensor-core kernel beside the CUDA-core one; both dtypes at D = 96,
+   at D = 256 (batch 8) and at D = 320 and 512 (batch 4); each with its
+   plain version's time, the bound (bytes, tensor-core products or the
+   exps on the special-function units, whichever is largest), and
+   ``scaled_dot_product_attention`` in the same dtype as a yardstick (the
+   port never calls it), with the backend it picks (its flash backend
+   stops at head dim 256);
 6. the flagship FedAvg-CNN at full size (the JAX package's benchmark
    config: 32 stations x 256 examples, Dirichlet 0.5, noise 2.0, 10 local
    steps of batch 32 at lr 0.05, server sgd(1.0), bf16 compute, 5 fused
@@ -193,18 +203,29 @@ Phases, each of which raises (exit code 1) on failure:
    replay of the same rounds, ms per call (median of 3, synchronised) and
    peak memory; the per-rank ``ring_attention`` (one rank) against
    ``ring_attention_sharded`` at one shard and ``tp_mlp`` over the group
-   against the dense MLP at phase 9's shapes, errors and ms. The group is
-   destroyed at the end; no flash kernel may launch.
+   against the dense MLP at phase 9's shapes, errors and ms; three
+   compressed FedAvg rounds (phase 7's compressor, station 1 masked in
+   the second) and ``secure_sum`` of ``[32, 421642]`` values on the group
+   mesh, each bit for bit the plain mesh's, timed in turns. The group is
+   destroyed; then two gloo ranks on the card run the device engine's
+   tasks, three compressed rounds of 8 flagship stations (4 a rank, each
+   station's local steps on their own) and the same ``secure_sum`` (16
+   stations a rank), each bit for bit the one-process form (sha256 of the
+   bytes). No flash kernel may launch.
 
 14. the ops plane around FedAvg, after a line saying whether ``requests``
    and ``cryptography`` import here. (a) The reference benchmark's
    straggler arm (``bench.py:2692-2770``): 8 host stations of 128 rows at
    8 executor workers, clean sync rounds, sync rounds with a ``FAULTS``
    delay on station 0 of ``min(1, max(0.2, 9 x the clean round))`` s, and
-   ``run_buffered`` (quorum 7, over-select 1); rounds/s the median of 3
-   timed runs of 6 rounds, each arm after one untimed round, with the
-   collector off; its gates: async at least 80% of clean, sync with the
-   straggler at most half, the aggregate within 2%. Then a Federation
+   ``run_buffered`` (quorum 7, over-select 1); each arm after one untimed
+   round, with the collector off, the two timed in turns (clean, then
+   buffered, 7 pairs of runs of 30 rounds, each clean run after an untimed
+   sync round that waits out the buffered arm's last straggler), each
+   pair's ratio printed;
+   its gates: the median of the pairs' ratios at least 80%, sync with the
+   straggler at most half the clean median, the aggregate within 2%.
+   Then a Federation
    with ``autopilot: {enabled: true}``: ``straggler_station`` names
    station 0, whose selection weight drops to 0.25 and returns to 1.0
    after clean rounds clear the alert. (b) The reference's closed loop
@@ -283,7 +304,11 @@ Phases, each of which raises (exit code 1) on failure:
    behind 32 inline daemons: ``central_average`` researcher -> node A ->
    proxy -> 32 runs -> aggregate, its count exact and its average within
    1e-14 of the in-process ``Federation``'s and 1e-12 of numpy's; wall ms
-   of both. (d) One ``partial_average`` through a sandbox-mode daemon: a
+   of both, and the REST wall split into its hops from the runs' server
+   stamps (the central's claim, the subtasks' creation, each subtask's
+   claim and its run, that is its CSV load and partial, the central's
+   wait after the last partial, the researcher's wake-up). (d) One
+   ``partial_average`` through a sandbox-mode daemon: a
    child process with the card hidden and ``jax`` shadowed by a package
    that records any import; the child's wall ms. (e) ``/api/health`` ok,
    ``/api/metrics`` with the server's series and ``v6t_device_*``, and
@@ -379,6 +404,12 @@ DROP_ROUND = 2  # station 3 is masked out in this round
 PHI3 = dict(d_model=3072, n_layers=2, n_heads=32, seq=1024, batch=4,
             vocab=32064, stations=4)
 PHI3_ROUNDS = 3  # the last one (DROP_ROUND) with station 3 masked out
+# a head dim above 256: the repo's transformer at d_model 4096 with 8 heads
+# of 512 (the width runs the kernels' O slabs over depth chunks), 2 layers,
+# 4 stations of 2 x 1024 tokens, bf16; two rounds
+WIDE = dict(d_model=4096, n_layers=2, n_heads=8, seq=1024, batch=2,
+            vocab=4096, stations=4)
+WIDE_ROUNDS = 2
 
 # the ring path's runs: (compute dtype, seq_devices)
 RING_RUNS = (("bfloat16", 1), ("float32", 1), ("bfloat16", 4))
@@ -524,14 +555,19 @@ def compare(fa, torch, out, q, k, v, qo, ko, causal, scale, variant, tol):
 # zero-filled columns (Phi-2's 80, Phi-3-mini's 96)
 EXTRA_HEAD_DIMS = (8, 24, 80, 96)
 PAD_HEAD_DIM = 12  # not a multiple of 8: the wrapper zero-pads q, k and v
+# above 256, in O slabs of at most 256 over depth chunks: 320 (a full slab
+# and a tail of 64), 512 (two full slabs) and 300 (padded to 304)
+WIDE_HEAD_DIMS = (300, 320, 512)
 
 
 def kernel_widths(fa, variant):
     """The head dims a kernel is held at: its instantiations, and for a
-    kernel that pads, the extra widths and the wrapper's pad."""
+    kernel that pads, the extra widths and the wrapper's pad, and for one
+    that runs in slabs, the widths above 256."""
     spec = fa.KERNELS[variant]
     extra = (*EXTRA_HEAD_DIMS, PAD_HEAD_DIM) if spec.pads else ()
-    return sorted(set(spec.head_dims) | set(extra))
+    wide = WIDE_HEAD_DIMS if spec.depth else ()
+    return sorted(set(spec.head_dims) | set(extra) | set(wide))
 
 
 def takes(fa, variant, dtype, d):
@@ -613,6 +649,25 @@ def phase_kernel_vs_plain(fa, torch, dev):
                       "exact zeros")
     print("kernels fully masked (k_offset=1000), every dtype and head dim "
           "held: exact zeros")
+    # above 256 every O slab sees the same S, m and l: with V's columns a
+    # repeat of its first 256, the output's slabs are bit-equal
+    for variant, spec in fa.KERNELS.items():
+        for dt in spec.dtypes if spec.depth else ():
+            for d in WIDE_HEAD_DIMS:
+                q, k, v0 = (torch.randn(1, 2, 300, w, generator=g,
+                                        device=dev).to(dt)
+                            for w in (d, d, 256))
+                v = torch.cat([v0] * (d // 256 + 1), -1)[..., :d]
+                out = fa.flash_forward_cuda(q, k, v.contiguous(), 0, 0,
+                                            True, d**-0.5, variant=variant)
+                torch.cuda.synchronize()
+                for s0 in range(256, d, 256):
+                    w = min(256, d - s0)
+                    check(torch.equal(out[..., s0:s0 + w], out[..., :w]),
+                          f"{variant} at D = {d}: slab {s0 // 256} differs "
+                          "from slab 0 on the same V columns")
+    print(f"kernels above 256 (D = {WIDE_HEAD_DIMS}): every O slab "
+          "bit-equal to the first on repeated V columns")
     return dict(worst, by_width=worst_by_width)
 
 
@@ -939,6 +994,11 @@ TIMED = (
     ("float32_d96", "float32", 16, 96, ("tf32x3",)),
     ("bfloat16_d256", "bfloat16", 8, 256, ("tensor_core",)),
     ("float32_d256", "float32", 8, 256, ("tf32x3",)),
+    # above 256, in O slabs over depth chunks, at batch 4
+    ("bfloat16_d320", "bfloat16", 4, 320, ("tensor_core",)),
+    ("float32_d320", "float32", 4, 320, ("tf32x3",)),
+    ("bfloat16_d512", "bfloat16", 4, 512, ("tensor_core",)),
+    ("float32_d512", "float32", 4, 512, ("tf32x3",)),
 ) + tuple(
     (f"{name}_d{d}", name, 16, d,
      (("cuda_core",) if d in (8, 16, 32, 64) else ()) + (variant,))
@@ -947,6 +1007,15 @@ TIMED = (
         ("float32", "tf32x3", (8, 12, 16, 24, 32, 64, 80)))
     for d in widths
 )
+
+
+def sdpa_backend(torch, q, k, v, scale):
+    """The backend ``scaled_dot_product_attention`` picks for a causal call
+    on these tensors (its flash backend stops at head dim 256)."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(
+        q, k, v, None, 0.0, True, scale=scale)).name
 
 
 def phase_times(fa, torch, dev):
@@ -971,6 +1040,7 @@ def phase_times(fa, torch, dev):
                    .to(dtype) for _ in range(3))
         library_ms = cuda_ms(
             lambda: sdpa(q, k, v, is_causal=True, scale=scale), 20)
+        backend = sdpa_backend(torch, q, k, v, scale)
         bound_ms, bound_by, term = attention_bound(
             b, h, t, t, hd, 0, 0, True, q.element_size(), peak, ex2_per_s)
         group = {}
@@ -988,7 +1058,8 @@ def phase_times(fa, torch, dev):
                 3, warmup=1)
             group[variant] = dict(dtype=name, shape=shape, head_dim=hd,
                                   max_abs_err=err, ms=[], plain_ms=plain_ms,
-                                  library_ms=library_ms, bound_ms=bound_ms,
+                                  library_ms=library_ms,
+                                  library_backend=backend, bound_ms=bound_ms,
                                   bound_by=bound_by, bound_term=term)
             if variant == "tf32x3":
                 # the least time of three TF32 passes at the TF32 peak
@@ -1007,7 +1078,8 @@ def phase_times(fa, torch, dev):
             print(f"flash_attention_fwd {variant} {shape} {name} "
                   f"causal: kernel {r['ms']:.4f} ms (runs "
                   f"{r['ms_runs'][0]:.4f}, {r['ms_runs'][1]:.4f}), plain "
-                  f"{r['plain_ms']:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+                  f"{r['plain_ms']:.4f} ms, sdpa {library_ms:.4f} ms "
+                  f"({backend}), bound "
                   f"{bound_ms:.4f} ms ({term}){floor}")
         res[case] = group
         del q, k, v, out
@@ -3212,6 +3284,116 @@ DIST_LOGREG_ATOL = 2e-5
 DIST_LOGREG_BF16_ATOL = 2 * 2.0**-7
 
 
+# phase 13's compressed FedAvg rounds and secure sum across ranks: the
+# flagship (phase 6) with phase 7's compressor, three EF-carrying rounds
+# from one key, station 1 masked in the second; at NCCL world size one the
+# flagship's 32 stations, on the two gloo ranks 8 of its stations (4 a
+# rank), each station's local steps on their own (see _looped_mesh). The
+# secure sum: 32 stations x the CNN's 421,642 values, N(0, 0.01), station
+# 1 masked, at 2^16 quanta a unit.
+DIST_COMPRESSED = dict(gloo_stations=8, rounds=3, masked_round=1, masked=1,
+                       key=5, secure_key=17, secure_scale=2.0**16,
+                       secure_seed=11, secure_values=421642)
+
+
+def _flagship_data(torch, dev, n_stations):
+    """The flagship's data (phase 6's sizes and seed) for ``n_stations``
+    stations on ``dev``: (x, y, counts), all stations."""
+    from vantage6_tpu_torch.core.mesh import FederationMesh
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    f = FEDAVG
+    return W.make_federated_data(
+        n_stations, n_per_station=f["per_station"], alpha=f["alpha"],
+        seed=0, mesh=FederationMesh(n_stations, device=dev),
+        noise=f["noise"])
+
+
+def _looped_mesh(n_stations, device, group=None):
+    """A ``FederationMesh`` whose ``fed_map`` runs each station's function
+    on its own instead of under ``vmap``: a batched kernel's bits can
+    depend on how many stations it batches, so a layout that puts 4 of 8
+    stations on a rank would train them differently from one process
+    holding all 8."""
+    from vantage6_tpu_torch.core.mesh import FederationMesh
+
+    class Looped(FederationMesh):
+        def fed_map(self, fn, *args, replicated_args=(), batched=False):
+            return super().fed_map(fn, *args,
+                                   replicated_args=replicated_args)
+
+    return Looped(n_stations, device=device, group=group)
+
+
+def _compressed_rounds(torch, mesh, sx, sy, counts, dev):
+    """DIST_COMPRESSED's rounds of the flagship FedAvg with phase 7's
+    compressor on ``mesh`` (the data its local block): each round's
+    (params, EF, loss, stats)."""
+    from vantage6_tpu_torch.fed.compression import CompressorSpec
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    c, f = DIST_COMPRESSED, FEDAVG
+    eng = W.make_engine(mesh, local_steps=f["local_steps"],
+                        batch_size=f["batch"], local_lr=f["lr"],
+                        compressor=CompressorSpec(**COMPRESSOR))
+    params = W.init_params(1, device=dev)
+    opt = eng.init(params)
+    gen = torch.Generator(device=dev).manual_seed(c["key"])
+    mask = torch.ones(mesh.n_stations)
+    mask[c["masked"]] = 0.0
+    out = []
+    for r in range(c["rounds"]):
+        params, opt, loss, stats = eng.round(
+            params, opt, sx, sy, counts, key=gen,
+            mask=mask if r == c["masked_round"] else None)
+        out.append((params, opt["ef"], loss, stats))
+    return out
+
+
+def _secure_values(torch, dev, rows=None):
+    """DIST_COMPRESSED's secure-sum inputs on ``dev``: the ``[32, N]``
+    values (``rows`` of them) and the global mask."""
+    c = DIST_COMPRESSED
+    x = np.random.default_rng(c["secure_seed"]).normal(
+        0.0, 0.01, (FEDAVG["stations"], c["secure_values"])).astype(
+            np.float32)
+    mask = torch.ones(FEDAVG["stations"])
+    mask[c["masked"]] = 0.0
+    return torch.from_numpy(x if rows is None else x[rows]).to(dev), mask
+
+
+def _digest(tensors):
+    """sha256 of the tensors' bytes, in order: equal digests, equal bits."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _round_digests(rounds, ef_rows=None):
+    """Per round: digests of the params, the EF (its ``ef_rows``), the loss
+    and each learning stat."""
+    out = []
+    for params, ef, loss, stats in rounds:
+        out.append(dict(
+            params=_digest(_leaves(params)),
+            ef=_digest([ef if ef_rows is None else ef[ef_rows]]),
+            loss=_digest([loss]),
+            **{f"stats.{k}": _digest([v]) for k, v in stats.items()}))
+    return out
+
+
+def _digests_differ(got, want):
+    """The (round, field) pairs whose digests differ."""
+    return [(r, k) for r, (g, w) in enumerate(zip(got, want))
+            for k in sorted(set(g) | set(w)) if g.get(k) != w.get(k)]
+
+
 def _engine_station(i):
     """Station ``i``'s columns for phase 13's device-engine tasks (a dict
     of numpy columns, as a process loads only its own): ``age`` N(50, 10)
@@ -3300,14 +3482,15 @@ AGG_MODES = ("replicated", "scattered", "scattered_bf16")
 # with torch.distributed itself (initialize() picks NCCL for a card) and
 # runs the device engine's tasks on its own station only
 _GLOO_RANK = """
-import json, sys
+import json, sys, time
 import torch
 import torch.distributed as dist
 rank, world, init, here, device = (int(sys.argv[1]), int(sys.argv[2]),
                                    sys.argv[3], sys.argv[4], sys.argv[5])
 sys.path.insert(0, here)
 import chip_smoke as cs
-cs.DISTRIBUTED.update(json.loads(sys.argv[6]))  # the parent's sizes
+for name, sizes in json.loads(sys.argv[6]).items():  # the parent's sizes
+    getattr(cs, name).update(sizes)
 from vantage6_tpu_torch.core import distributed as D
 from vantage6_tpu_torch.workloads import device_engine as DE
 dist.init_process_group("gloo", init_method=init, world_size=world,
@@ -3321,9 +3504,124 @@ for mode in cs.AGG_MODES:
         cols, features, "label", rounds=cfg["rounds"],
         local_steps=cfg["local_steps"], batch_rows=cfg["rows"], lr=cfg["lr"],
         agg_mode=mode, device=device)
+# the compressed rounds and the secure sum across the two ranks
+from vantage6_tpu_torch.fed import collectives as C
+torch.backends.cudnn.deterministic = True
+n_s = cs.DIST_COMPRESSED["gloo_stations"]
+mesh = cs._looped_mesh(n_s, device, group=dist.group.WORLD)
+rows = slice(mesh.local_stations.start, mesh.local_stations.stop)
+sx, sy, counts = cs._flagship_data(torch, device, n_s)
+t0 = time.perf_counter()
+rounds = cs._compressed_rounds(torch, mesh, sx[rows], sy[rows], counts,
+                               device)
+out["compressed"] = dict(digests=cs._round_digests(rounds),
+                         s=time.perf_counter() - t0,
+                         stations=list(mesh.local_stations))
+c = cs.DIST_COMPRESSED
+per = cs.FEDAVG["stations"] // world
+vals, mask = cs._secure_values(torch, device,
+                               rows=slice(per * rank, per * (rank + 1)))
+from vantage6_tpu_torch.core.mesh import FederationMesh
+smesh = FederationMesh(2 * vals.shape[0], device=device,
+                       group=dist.group.WORLD)
+t0 = time.perf_counter()
+total = C.secure_sum(vals, c["secure_key"], c["secure_scale"], mask=mask,
+                     mesh=smesh)
+out["secure_sum"] = dict(digest=cs._digest([total]),
+                         s=time.perf_counter() - t0)
 dist.destroy_process_group()
 print(json.dumps(out))
 """
+
+
+def _dist_compressed(torch, dev, gmesh, plain, backend, sx, sy, counts):
+    """Phase 13's compressed rounds and secure sum on the group of one
+    rank against the plain mesh, bit for bit, each timed in turns (plain,
+    group, group, plain)."""
+    from vantage6_tpu_torch.fed import collectives as C
+
+    c = DIST_COMPRESSED
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        digests, round_ms = {}, {"plain": [], backend: []}
+        for which in ("plain", backend, backend, "plain"):
+            sync()
+            t0 = time.perf_counter()
+            rounds = _compressed_rounds(
+                torch, plain if which == "plain" else gmesh, sx, sy,
+                counts, dev)
+            sync()
+            round_ms[which].append(
+                1e3 * (time.perf_counter() - t0) / c["rounds"])
+            digests[which] = _round_digests(rounds)
+        differ = _digests_differ(digests[backend], digests["plain"])
+        same = not differ
+        check(same, f"the compressed rounds on the {backend} mesh differ "
+                    f"from the plain mesh's at (round, field) {differ}")
+        loss = [float(r[2]) for r in rounds]
+        del rounds
+        vals, mask = _secure_values(torch, dev)
+        sums, sum_ms = {}, {"plain": [], backend: []}
+        for which in ("plain", backend, backend, "plain"):
+            kw = {} if which == "plain" else {"mesh": gmesh}
+            sync()
+            t0 = time.perf_counter()
+            total = C.secure_sum(vals, c["secure_key"], c["secure_scale"],
+                                 mask=mask, **kw)
+            sync()
+            sum_ms[which].append(1e3 * (time.perf_counter() - t0))
+            sums[which] = _digest([total])
+        same_sum = sums["plain"] == sums[backend]
+        check(same_sum, f"secure_sum on the {backend} mesh differs from "
+                        "the one-process sum")
+        plain_sum = (vals.double() * mask.to(dev).double()[:, None]).sum(0)
+        err = (total.double() - plain_sum).abs().max().item()
+        lim = vals.shape[0] * 0.5 / c["secure_scale"]
+        check(err <= lim, f"secure_sum off the plain sum by {err} > {lim}")
+        del vals, total
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    res = dict(
+        rounds=dict(bit_identical=same, losses=loss,
+                    ms_per_round={k: sorted(v)[0]
+                                  for k, v in round_ms.items()},
+                    runs_ms=round_ms),
+        secure_sum=dict(bit_identical=same_sum, max_abs_err=err, tol=lim,
+                        ms={k: sorted(v)[0] for k, v in sum_ms.items()},
+                        runs_ms=sum_ms, digest=sums["plain"]))
+    print(f"compressed fedavg ({COMPRESSOR}) x {c['rounds']} rounds on the "
+          f"{backend} mesh == plain mesh bit for bit (losses {loss}); "
+          f"ms/round {backend} {res['rounds']['ms_per_round'][backend]:.3f},"
+          f" plain {res['rounds']['ms_per_round']['plain']:.3f} (best of 2 "
+          f"turns); secure_sum [{FEDAVG['stations']}, {c['secure_values']}]"
+          f" on the {backend} mesh == one-process sum bit for bit, "
+          f"{res['secure_sum']['ms'][backend]:.3f} ms vs "
+          f"{res['secure_sum']['ms']['plain']:.3f} ms (best of 2 turns), "
+          f"max |err| vs the plain f64 sum {err:.3e} (tol {lim:.3e})")
+    return res
+
+
+def _gloo_compressed_reference(torch, dev):
+    """The one-process form of the gloo ranks' compressed rounds: the
+    digests each rank must match (its EF rows)."""
+    n_s = DIST_COMPRESSED["gloo_stations"]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sx, sy, counts = _flagship_data(torch, dev, n_s)
+        rounds = _compressed_rounds(torch, _looped_mesh(n_s, dev), sx, sy,
+                                    counts, dev)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    per = n_s // 2
+    return [_round_digests(rounds, ef_rows=slice(per * r, per * (r + 1)))
+            for r in range(2)]
 
 
 def _gloo_two_ranks(dev, timeout=300):
@@ -3338,7 +3636,10 @@ def _gloo_two_ranks(dev, timeout=300):
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, "-c", _GLOO_RANK, str(r), "2", init, HERE,
-             dev.type, json.dumps(DISTRIBUTED)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+             dev.type, json.dumps(dict(
+                 DISTRIBUTED=DISTRIBUTED, FEDAVG=FEDAVG,
+                 DIST_COMPRESSED=DIST_COMPRESSED))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True) for r in range(2)]
         try:
             outs = [p.communicate(timeout=timeout) for p in procs]
@@ -3492,7 +3793,10 @@ def phase_distributed(fa, torch, dev):
               f"{res['fedavg_round']['ms'][backend]:.3f}, plain "
               f"{res['fedavg_round']['ms']['plain']:.3f} (best of 2 turns, "
               f"each the median of 3)")
-        del sx, sy, outs, a, b, eng_plain, eng_group
+        del outs, a, b, eng_plain, eng_group
+        res["compressed"] = _dist_compressed(torch, dev, gmesh, plain,
+                                             backend, sx, sy, counts)
+        del sx, sy
 
         # --------------------------------------- the device engine's tasks
         cols, features = _engine_station(0)
@@ -3578,6 +3882,32 @@ def phase_distributed(fa, torch, dev):
     # two gloo ranks on the one card (gloo takes CUDA tensors for the
     # collectives these tasks use; NCCL cannot put two ranks on one card)
     outs, wall = _gloo_two_ranks(dev)
+    ref = _gloo_compressed_reference(torch, dev)
+    n_s = DIST_COMPRESSED["gloo_stations"]
+    for r, o in enumerate(outs):
+        differ = _digests_differ(o["compressed"]["digests"], ref[r])
+        check(o["compressed"]["stations"]
+              == list(range(r * n_s // 2, (r + 1) * n_s // 2))
+              and len(o["compressed"]["digests"]) == len(ref[r])
+              and not differ,
+              f"gloo rank {r}: the compressed rounds differ from the "
+              f"one-process rounds at (round, field) {differ}")
+        check(o["secure_sum"]["digest"]
+              == res["compressed"]["secure_sum"]["digest"],
+              f"gloo rank {r}: secure_sum differs from the one-process sum")
+    res["gloo_compressed"] = dict(
+        bit_identical=True, stations=n_s,
+        rounds_s=[o["compressed"]["s"] for o in outs],
+        secure_sum_s=[o["secure_sum"]["s"] for o in outs])
+    print(f"over two gloo ranks on {dev}: {DIST_COMPRESSED['rounds']} "
+          f"compressed rounds of {n_s} stations ({n_s // 2} a rank) == the "
+          "one-process rounds bit for bit (params, each rank's EF rows, "
+          "loss, stats), "
+          f"{res['gloo_compressed']['rounds_s']} s; secure_sum of "
+          f"[{FEDAVG['stations']}, {DIST_COMPRESSED['secure_values']}] "
+          f"({FEDAVG['stations'] // 2} a rank) == the one-process sum bit "
+          "for bit, "
+          f"{res['gloo_compressed']['secure_sum_s']} s")
     stations = [_engine_station(r) for r in range(2)]
     errors = _engine_checks(stations, outs[0]["stats"],
                             {m: outs[0][m] for m in AGG_MODES})
@@ -3602,8 +3932,12 @@ def phase_distributed(fa, torch, dev):
 # ------------------------------------------------------------------ phase 14
 OPS = dict(
     # (a) the reference benchmark's straggler arm (bench.py:2692-2770)
-    stations=8, rows=128, rounds=6, quorum=7, over_select=1,
-    trials=3,        # rounds/s: the median of 3 timed runs of 6 rounds
+    stations=8, rows=128, rounds=30, quorum=7, over_select=1,
+    # rounds/s: the clean and the buffered arm timed in turns, one run of
+    # 30 rounds each a pair, 7 pairs; the resilience is the median of the
+    # pairs' ratios
+    pairs=7,
+    slow_rounds=2,   # sync rounds under the straggler (each waits for it)
     clean_rounds=8,  # clean rounds after the fault, to clear the alert
     work_s=0.005,    # the autopilot arm's local work a station
     # (b) its closed loop (bench.py:2771-2850)
@@ -3690,27 +4024,26 @@ def _ops_straggler(torch, dev):
         return mean_of([r for r in t.runs
                         if r.status == TaskStatus.COMPLETED])
 
-    def timed(one_round):
-        """rounds/s of each arm: the median of ``trials`` timed runs of
-        ``rounds`` rounds, after one untimed round; the values of all."""
-        one_round()
-        runs, vals = [], []
-        for _ in range(c["trials"]):
-            t0 = time.perf_counter()
-            vals += [one_round() for _ in range(rounds)]
-            runs.append(rounds / (time.perf_counter() - t0))
-        return float(np.median(runs)), runs, vals
+    def timed(one_round, vals):
+        """rounds/s of one run of ``rounds`` rounds; their values go to
+        ``vals``."""
+        t0 = time.perf_counter()
+        vals += [one_round() for _ in range(rounds)]
+        return rounds / (time.perf_counter() - t0)
 
     FAULTS.clear()
     # the arms take milliseconds: time them with the collector off, as
     # timeit does (a full collection of this process's heap takes longer)
     gc.collect()
     gc.disable()
-    rps_clean, clean_runs, vals_clean = timed(sync_round)
+    sync_round()  # untimed
+    vals_clean = []
+    first_clean = timed(sync_round, vals_clean)
     # the "10x-slow station": ~9 extra clean-round times, clamped
-    delay_s = min(1.0, max(0.2, 9.0 / rps_clean))
-    FAULTS.configure(f"delay:station=0,seconds={delay_s:.3f}")
-    n_slow = max(2, rounds // 3)
+    delay_s = min(1.0, max(0.2, 9.0 / first_clean))
+    fault = f"delay:station=0,seconds={delay_s:.3f}"
+    FAULTS.configure(fault)
+    n_slow = c["slow_rounds"]
     t0 = time.perf_counter()
     for _ in range(n_slow):
         sync_round()
@@ -3730,28 +4063,47 @@ def _ops_straggler(torch, dev):
         return mean_of([x for x in r["task"].runs
                         if x.station_index in accepted])
 
-    rps_async, async_runs, vals_async = timed(async_round)
+    async_round()  # untimed
+    # the two arms in turns, so that the host's drift moves both alike:
+    # clean (no fault), buffered (the straggler), clean, buffered, ...
+    clean_runs, async_runs, vals_async = [], [], []
+    for _ in range(c["pairs"]):
+        FAULTS.clear()
+        # untimed: a sync round waits out the straggler the buffered arm
+        # left running on station 0's queue
+        sync_round()
+        clean_runs.append(timed(sync_round, vals_clean))
+        FAULTS.configure(fault)
+        async_runs.append(timed(async_round, vals_async))
     gc.enable()
     fault_snapshot = FAULTS.snapshot()
     FAULTS.clear()
     staleness = fed.station_staleness()
     fed.close()
-    resilience = 100.0 * rps_async / rps_clean
+    ratios = [100.0 * a / b for a, b in zip(async_runs, clean_runs)]
+    print("ops straggler pairs (clean, buffered rounds/s, ratio %): "
+          + ", ".join(f"({b:.1f}, {a:.1f}, {r:.1f})"
+                      for b, a, r in zip(clean_runs, async_runs, ratios)))
+    resilience = float(np.median(ratios))
+    rps_clean = float(np.median(clean_runs))
+    rps_async = float(np.median(async_runs))
     mean_clean, mean_async = float(np.mean(vals_clean)), float(
         np.mean(vals_async))
     agg_rel_err = abs(mean_async - mean_clean) / max(abs(mean_clean), 1e-9)
-    res = dict(stations=n_s, rounds=rounds, trials=c["trials"],
+    res = dict(stations=n_s, rounds=rounds, pairs=c["pairs"],
                delay_s=delay_s, clean_rounds_per_s=rps_clean,
                clean_runs=clean_runs, sync_straggler_rounds_per_s=rps_slow,
                async_rounds_per_s=rps_async, async_runs=async_runs,
+               pair_ratios_pct=ratios,
                resilience_pct=resilience, stragglers_killed=killed,
                max_staleness=max_stale,
                staleness_after=staleness, aggregate_rel_err=agg_rel_err,
                fault_snapshot=fault_snapshot)
     print(f"ops straggler: clean {rps_clean:.2f} rounds/s, sync with a "
           f"{delay_s:.3f} s straggler {rps_slow:.2f}, run_buffered "
-          f"{rps_async:.2f} (resilience {resilience:.1f}% vs "
-          f"{AP_RESILIENCE_PCT:g}; runs {clean_runs} and {async_runs}), "
+          f"{rps_async:.2f} (medians of {c['pairs']} pairs; resilience, "
+          f"the median of the pairs' ratios, {resilience:.1f}% vs "
+          f"{AP_RESILIENCE_PCT:g}), "
           f"{killed} stragglers killed, aggregate "
           f"rel err {agg_rel_err:.2e} (limit {AGG_PARITY})")
     gate(resilience >= AP_RESILIENCE_PCT,
@@ -4940,6 +5292,42 @@ def _cp_device_engine(torch, dev, stack, tmp):
     return res
 
 
+def _fanout_hops(c, task_id, subtasks, t_submit, t_result):
+    """Where the fan-out's wall time went, in ms, from the server's run
+    stamps (``assigned_at`` by the server, ``started_at`` and
+    ``finished_at`` by the daemons, one host clock): the researcher's
+    submit to node A's claim of the central run, the central's start to
+    its last subtask created, each subtask's claim (created -> active: the
+    event, the REST claim, the activation) and run (active -> finished:
+    the CSV load and the partial), the central's wait from the last
+    partial's finish to its own, and the researcher's wake-up. Printed on
+    a line of its own."""
+    (central,) = c.run.from_task(task_id)
+    subs = [r for t in subtasks for r in c.run.from_task(t["id"])]
+    assigned = [r["assigned_at"] for r in subs]
+    claim = [1e3 * (r["started_at"] - r["assigned_at"]) for r in subs]
+    run = [1e3 * (r["finished_at"] - r["started_at"]) for r in subs]
+    last_done = max(r["finished_at"] for r in subs)
+    hops = dict(
+        submit_to_claim=1e3 * (central["started_at"] - t_submit),
+        central_to_subtasks=1e3 * (max(assigned) - central["started_at"]),
+        subtask_claim_p50=float(np.median(claim)),
+        subtask_claim_max=max(claim),
+        subtask_run_p50=float(np.median(run)),
+        subtask_run_max=max(run),
+        subtasks_span=1e3 * (last_done - min(assigned)),
+        central_wait_after_last=1e3 * (central["finished_at"] - last_done),
+        result_to_researcher=1e3 * (t_result - central["finished_at"]),
+    )
+    slowest = max(subs, key=lambda r: r["finished_at"] - r["assigned_at"])
+    hops["slowest_subtask_org"] = (slowest.get("organization") or {}).get(
+        "id")
+    print("central fan-out hops (ms): " + ", ".join(
+        f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in hops.items()))
+    return hops
+
+
 def _cp_fanout(torch, dev, stack, tmp):
     """(c) ``central_average`` over phase 12's registry behind 32 inline
     daemons (researcher -> node A -> proxy -> 32 subtasks), against the
@@ -4972,9 +5360,12 @@ def _cp_fanout(torch, dev, stack, tmp):
                          input_={"method": "central_average",
                                  "kwargs": {"column": "f0"}})
     (rest_out,) = c.wait_for_results(task["id"], interval=0.01, timeout=300)
+    rest_end = time.time()
     rest_ms = 1e3 * (time.perf_counter() - t0)
     subtasks = [t for t in c.task.list()
                 if (t.get("parent") or {}).get("id") == task["id"]]
+    hops = _fanout_hops(c, task["id"], subtasks, rest_end - rest_ms / 1e3,
+                        rest_end)
     stack.stop_daemons(daemons)
 
     fed = federation_from_datasets(
@@ -4994,7 +5385,8 @@ def _cp_fanout(torch, dev, stack, tmp):
         / abs(fed_out["average"])
     rel_np = abs(rest_out["average"] - pooled.mean()) / abs(pooled.mean())
     res = dict(stations=len(f0), patients=int(counts.sum()),
-               daemons_start_s=start_s, rest_ms=rest_ms, federation_ms=fed_ms,
+               daemons_start_s=start_s, rest_ms=rest_ms, hops_ms=hops,
+               federation_ms=fed_ms,
                rest=rest_out, federation=fed_out, numpy=float(pooled.mean()),
                rel_err_vs_federation=rel_fed, rel_err_vs_numpy=rel_np,
                subtasks=len(subtasks))
@@ -5621,7 +6013,8 @@ def kernel_rows(fa, times, flash_runs, other_launches):
                    for phase, counts in other_launches.items()},
                 **{key: times[case][variant][key] for key in (
                     "dtype", "shape", "max_abs_err", "ms", "plain_ms",
-                    "bound_ms", "bound_by", "bound_term", "library_ms")},
+                    "bound_ms", "bound_by", "bound_term", "library_ms",
+                    "library_backend")},
             ))
     for r in flash_runs:  # each main path's kernel: a row, and launches
         check(any(kr["variant"] == r["variant"]
@@ -5686,7 +6079,13 @@ def main(argv: list[str]) -> int:
                                   shape=PHI3, rounds=PHI3_ROUNDS,
                                   must_fall=False, label="phi3-mini bf16")
     del eng_state
-    for name, r in [*slice_res.items(), ("phi3-mini bfloat16", phi3)]:
+    # 4 (d): a head dim above 256, the kernel's O slabs over depth chunks
+    wide, eng_state = phase_slice(fa, ft, torch, dev, torch.bfloat16,
+                                  shape=WIDE, rounds=WIDE_ROUNDS,
+                                  must_fall=False, label="d512 bf16")
+    del eng_state
+    for name, r in [*slice_res.items(), ("phi3-mini bfloat16", phi3),
+                    ("d512 bfloat16", wide)]:
         print(f"slice {name}: {r['ms_per_round']:.1f} ms/round, "
               f"{r['tokens_per_s']:.0f} tokens/s, peak "
               f"{r['peak_mem_gb']:.2f} GB on {card}")
@@ -5841,7 +6240,7 @@ def main(argv: list[str]) -> int:
               f"{cli['tools']['test_s']:.1f} s; phase "
               f"{cli['seconds']:.1f} s on {card}")
 
-    flash_runs = [*slice_res.values(), phi3]
+    flash_runs = [*slice_res.values(), phi3, wide]
     kernels = kernel_rows(fa, times, flash_runs, {
         "ring": {v: sum(r["launches"][v] for r in ring.values())
                  for v in fa.KERNELS},
@@ -5855,7 +6254,7 @@ def main(argv: list[str]) -> int:
     result = dict(card=card, kind=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   max_abs_err_cases=max_err_cases, slice=slice_res,
-                  slice_phi3=phi3,
+                  slice_phi3=phi3, slice_d512=wide,
                   ring=ring, parallel_ops=parallel_ops, wire=wire,
                   fedavg=fedavg, compression=compression, analysis=analysis,
                   task_plane=task_plane, planes=planes,
@@ -5868,7 +6267,8 @@ def main(argv: list[str]) -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1, default=str)
-    print(json.dumps({"slice": slice_res, "slice_phi3": phi3, "ring": ring,
+    print(json.dumps({"slice": slice_res, "slice_phi3": phi3,
+                      "slice_d512": wide, "ring": ring,
                       "parallel_ops": parallel_ops, "wire": wire,
                       "fedavg": fedavg,
                       "compression": compression, "analysis": analysis,

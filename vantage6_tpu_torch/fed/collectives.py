@@ -252,6 +252,15 @@ def unflatten_stacked(template: Pytree, flat: torch.Tensor) -> Pytree:
     return tree_unflatten(template, out)
 
 
+def row_norms(x: torch.Tensor) -> torch.Tensor:
+    """The f32 L2 norm of each row of ``x`` ``[S, N]``, one reduction a
+    row: a row's bits then depend on neither the number of rows nor where
+    the row starts (a batched reduction's order may), so a rank's rows'
+    norms, gathered, are the one-process norms bit for bit."""
+    x = x.to(torch.float32)
+    return torch.stack([torch.sqrt(torch.sum(r * r)) for r in x])
+
+
 def station_update_stats(
     flat: torch.Tensor,
     weights: Any | None = None,
@@ -307,8 +316,7 @@ def station_update_stats(
         "station_weight": w,
     }
     if ef is not None:
-        e = ef.to(torch.float32)
-        out["station_ef_norm"] = torch.sqrt(torch.sum(e * e, dim=1))
+        out["station_ef_norm"] = row_norms(ef)
     if multi:  # every slot's [S_local] block, in station order
         for name in ("station_norm", "station_cos", "station_ef_norm"):
             if name in out:
@@ -437,6 +445,15 @@ def all_gather_stations(mesh: "FederationMesh",
     return out
 
 
+def all_gather_rows(mesh: "FederationMesh", x: torch.Tensor) -> torch.Tensor:
+    """The global ``[S, ...]`` from every slot's local ``[S_local, ...]``
+    block, in station order (on one card, ``x`` itself)."""
+    if mesh.group is None:
+        return x
+    flat = all_gather_stations(mesh, x.contiguous().reshape(-1))
+    return flat.reshape((mesh.n_stations,) + tuple(x.shape[1:]))
+
+
 def fed_mean_scattered_tree(
     mesh: "FederationMesh",
     stacked: Pytree,
@@ -538,15 +555,25 @@ def _pair_mask(key: int, i: torch.Tensor, j: torch.Tensor,
     return _wrap32(out.reshape(shape[0], -1)[:, :numel])
 
 
-def mask_station_value(key: int, quantized: torch.Tensor) -> torch.Tensor:
+def mask_station_value(key: int, quantized: torch.Tensor,
+                       stations: range | None = None,
+                       n_stations: int | None = None) -> torch.Tensor:
     """Every station's pairwise masks added (mod 2^32) to its quantized
     value: ``quantized`` is ``[S, ...]`` int32, one row per station. A loop
-    over the S partners, each step one ``[S, numel]`` mask for all
-    stations at once."""
+    over the ``n_stations`` partners, each step one ``[S, numel]`` mask for
+    all rows at once. Across ranks the rows are the local block:
+    ``stations`` gives their global indices and ``n_stations`` the global
+    S (default: ``range(S)`` of ``S`` stations), so each row gets exactly
+    the masks its station gets on one card."""
     s = quantized.shape[0]
+    stations = range(s) if stations is None else stations
+    n_stations = s if n_stations is None else n_stations
+    if len(stations) != s:
+        raise ValueError(f"{s} rows for stations {list(stations)}")
     acc = quantized.reshape(s, -1).to(torch.int64)
-    station = torch.arange(s, device=quantized.device)
-    for partner in range(s):
+    station = torch.arange(stations.start, stations.stop,
+                           device=quantized.device)
+    for partner in range(n_stations):
         other = torch.full_like(station, partner)
         m = _pair_mask(key, torch.minimum(station, other),
                        torch.maximum(station, other), acc.shape[1])
@@ -570,6 +597,8 @@ def secure_sum(
     key: int,
     scale: float = 2.0**16,
     mask: Any | None = None,
+    *,
+    mesh: "FederationMesh | None" = None,
 ) -> torch.Tensor:
     """Secure sum over the station axis via pairwise additive masking.
 
@@ -579,16 +608,33 @@ def secure_sum(
     f32 sum. Max representable |sum| is 2^31/scale.
 
     ``mask`` ([S]) zeroes non-participating stations' values while every
-    station still adds its pairwise masks, so they still cancel."""
+    station still adds its pairwise masks, so they still cancel.
+
+    Across ranks (``mesh`` over a process group) ``stacked`` is the rank's
+    local block ``[S_local, ...]`` and ``mask`` stays global ``[S]``: each
+    rank masks its stations against all S partners, sums its rows in int64,
+    and the int64 partials are all-reduced before the one wrap to int32. An
+    int64 sum of int32 values is exact, so the result is the one-process
+    sum bit for bit on every rank, whatever the backend does with int32
+    overflow."""
+    multi = _multi_rank(mesh)
+    if multi:
+        _check_local(mesh, stacked.shape[0])
+        if mask is not None:
+            mask = _local_rows(mesh, _as_f32(mask, stacked.device))
     vals = stacked
     if mask is not None:
         m = _as_f32(mask, stacked.device).to(stacked.dtype).reshape(
             (-1,) + (1,) * (stacked.ndim - 1))
         vals = torch.where(m != 0, stacked, torch.zeros(
             (), dtype=stacked.dtype, device=stacked.device)) * m
-    q = mask_station_value(key, quantize(vals, scale))
+    layout = (mesh.local_stations, mesh.n_stations) if multi else ()
+    q = mask_station_value(key, quantize(vals, scale), *layout)
     # torch sums int32 into int64: wrap back to int32 before dequantizing
-    return dequantize(_wrap32(torch.sum(q, dim=0, dtype=torch.int64)), scale)
+    total = torch.sum(q, dim=0, dtype=torch.int64)
+    if multi:
+        total = _all_reduce(total, mesh)
+    return dequantize(_wrap32(total), scale)
 
 
 def secure_fed_mean(
@@ -596,17 +642,23 @@ def secure_fed_mean(
     weights: Any,
     key: int,
     scale: float = 2.0**16,
+    *,
+    mesh: "FederationMesh | None" = None,
 ) -> Pytree:
     """FedAvg aggregation where both the weighted sums and the total weight
     go through ``secure_sum``: the aggregator never sees one station's
     update in the clear. Leaf ``i`` is masked with ``fold_in(key, i + 1)``.
-    """
+    Across ranks (``mesh=``) the leaves are the local block and ``weights``
+    stay global ``[S]``, as for ``secure_sum``."""
     device = tree_leaves(stacked)[0].device
     w32 = _as_f32(weights, device)
-    total_w = secure_sum(w32, key, scale)
+    if _multi_rank(mesh):
+        w32 = _local_rows(mesh, w32)
+    total_w = secure_sum(w32, key, scale, mesh=mesh)
     denom = torch.where(total_w > 0, total_w, torch.ones_like(total_w))
     out = []
     for idx, x in enumerate(tree_leaves(stacked)):
         w = w32.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
-        out.append(secure_sum(x * w, fold_in(key, idx + 1), scale) / denom)
+        out.append(secure_sum(x * w, fold_in(key, idx + 1), scale,
+                              mesh=mesh) / denom)
     return tree_unflatten(stacked, out)

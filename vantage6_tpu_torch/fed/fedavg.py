@@ -50,8 +50,15 @@ the round loss and the learning stats are combined with explicit
 collectives (``fed.collectives`` with ``mesh=``), in both the plain and the
 ``shard_server_update`` form, where each slot steps its shard of the flat
 params and server state. Weights (``counts``, ``mask``) stay global ``[S]``.
-The fused ``run_rounds`` (a CUDA graph) and compression stay one-process:
-on such a mesh they raise (ROADMAP.md queue 1, item 12).
+With a compressor the EF accumulators are the local stations' rows
+``[S_local, N]``, every rank draws the global rounding noise and keeps its
+rows, and the compressed payloads (the uplink) and the losses are
+all-gathered: every rank reconstructs all S deltas and aggregates them in
+the one-process order, so a compressed round equals the one-process round
+bit for bit whatever the layout (the dense round's all-reduce sums in
+another order, a few ulps off). The fused
+``run_rounds`` (a CUDA graph) stays one-process: on such a mesh it raises
+(ROADMAP.md queue 1, item 12.1).
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ from vantage6_tpu_torch._tree import tree_leaves, tree_map
 from vantage6_tpu_torch.common.telemetry import REGISTRY
 from vantage6_tpu_torch.core.mesh import FederationMesh
 from vantage6_tpu_torch.fed.collectives import (
+    all_gather_rows,
     all_gather_stations,
     fed_mean,
     fed_mean_scattered,
@@ -76,6 +84,7 @@ from vantage6_tpu_torch.fed.collectives import (
     flatten_tree,
     padded_flat_size,
     per_round_masks,
+    row_norms,
     station_update_stats,
     unflatten_like,
     unflatten_stacked,
@@ -83,6 +92,7 @@ from vantage6_tpu_torch.fed.collectives import (
 from vantage6_tpu_torch.fed.compression import (
     CompressorSpec,
     compress_stacked,
+    decompress_flat,
     draw_noise,
     noise_size,
     record_round_telemetry,
@@ -214,11 +224,6 @@ class FedAvg:
         # an identity compressor is a no-op: skip the flat-pack round trip
         self._compressing = (spec.compressor is not None
                              and not spec.compressor.identity)
-        if self._compressing and mesh.group is not None:
-            raise NotImplementedError(
-                "compression across ranks is not ported yet: ROADMAP.md "
-                "queue 1, item 12.2"
-            )
         self.server_opt = spec.server_optimizer or sgd(1.0)
         # captured rounds, keyed on their inputs' structure, shapes, dtypes;
         # at most FUSED_CACHE_SIZE, the oldest evicted first; each capture
@@ -277,31 +282,39 @@ class FedAvg:
         # the aggregation consumes the decompressed deltas, what a server
         # reconstructs from each station's compressed uplink
         ef = flat = None
+        # compressed across ranks, every rank holds every station's
+        # reconstructed delta and loss: the rest is the one-process round's
+        whole = self._compressing and self.mesh.group is not None
+        mesh = None if whole else self.mesh
         if self._compressing:
             server_state = opt_state["server"]
             deltas, ef, flat = self._compress_deltas(deltas, opt_state["ef"],
                                                      noise, mask)
+            if whole:
+                losses = all_gather_rows(self.mesh, losses)
         else:
             server_state = opt_state
         stats: dict[str, Any] = {}
         if self.spec.learning_stats:
             if flat is None:
                 flat = flatten_stacked(deltas)
-            stats = station_update_stats(flat, weights=weights, ef=ef,
-                                         mesh=self.mesh)
+            stats = station_update_stats(flat, weights=weights,
+                                         ef=None if whole else ef, mesh=mesh)
+            if whole:  # each rank's EF rows, gathered
+                stats["station_ef_norm"] = all_gather_rows(self.mesh,
+                                                           row_norms(ef))
         if self.spec.shard_server_update:
             params, server_state = self._sharded_server_update(
-                params, server_state, deltas, weights
-            )
+                params, server_state, deltas, weights, whole=whole)
         else:
-            mean_delta = fed_mean(deltas, weights=weights, mesh=self.mesh)
+            mean_delta = fed_mean(deltas, weights=weights, mesh=mesh)
             # server update on the pseudo-gradient (negative mean delta)
             pseudo_grad = tree_map(torch.neg, mean_delta)
             updates, server_state = self.server_opt.update(
                 pseudo_grad, server_state, params
             )
             params = apply_updates(params, updates)
-        round_loss = fed_mean(losses, weights=weights, mesh=self.mesh)
+        round_loss = fed_mean(losses, weights=weights, mesh=mesh)
         new_state = ({"server": server_state, "ef": ef} if self._compressing
                      else server_state)
         return params, new_state, round_loss, stats
@@ -316,36 +329,57 @@ class FedAvg:
         flat ``[S, N]`` matrix (the learning stats reuse it).
 
         A masked-out station ships nothing, so its accumulator waits: its
-        EF row carries over unchanged."""
+        EF row carries over unchanged. Across ranks the deltas, the EF and
+        the noise are the local block (the mask stays global ``[S]``), and
+        so is the new EF; the compressed payloads, the uplink, are
+        all-gathered and every rank reconstructs all S deltas from them,
+        bit for bit what each station's own rank reconstructed."""
+        spec = self.spec.compressor
         template = tree_map(lambda x: x[0], deltas)
         flat = flatten_stacked(deltas)
-        _, hat, new_ef = compress_stacked(
-            self.spec.compressor, flat, ef, None,
-            cast_dtype=self.spec.comm_dtype, noise=noise,
+        payload, hat, new_ef = compress_stacked(
+            spec, flat, ef, None, cast_dtype=self.spec.comm_dtype,
+            noise=noise,
         )
+        stations = self.mesh.local_stations
+        mask = mask[stations.start:stations.stop]
         new_ef = torch.where((mask != 0).reshape(-1, 1), new_ef, ef)
+        if self.mesh.group is not None:
+            payload = {k: all_gather_rows(self.mesh, v)
+                       for k, v in payload.items()}
+            hat = decompress_flat(spec, payload, hat.shape[-1])
         return unflatten_stacked(template, hat), new_ef, hat
 
     def _sharded_server_update(
         self, params: Pytree, opt_state: Any, deltas: Pytree,
-        weights: torch.Tensor,
+        weights: torch.Tensor, whole: bool = False,
     ) -> tuple[Pytree, Any]:
         """Reduce-scatter -> shard-local update -> all-gather: the server
         optimizer steps this slot's shard of the flat padded f32 param
-        vector (the whole vector on one card)."""
+        vector (the whole vector on one card). With ``whole`` (every
+        station's delta on every rank) the mean is the one-process one,
+        cut to this slot's shard."""
         mesh = self.mesh
-        grad = -fed_mean_scattered(mesh, deltas, weights=weights,
-                                   comm_dtype=self.spec.comm_dtype)
+        if whole:
+            grad = -self._shard(fed_mean_scattered(
+                FederationMesh(mesh.n_stations, device=mesh.device), deltas,
+                weights=weights, comm_dtype=self.spec.comm_dtype))
+        else:
+            grad = -fed_mean_scattered(mesh, deltas, weights=weights,
+                                       comm_dtype=self.spec.comm_dtype)
         shard = self._param_shard(params)
         updates, opt_state = self.server_opt.update(grad, opt_state, shard)
         new_flat = all_gather_stations(mesh, apply_updates(shard, updates))
         return unflatten_like(params, new_flat), opt_state
 
     def _param_shard(self, params: Pytree) -> torch.Tensor:
-        """This slot's shard of the flat f32 params, zero-padded to a
-        multiple of the station axis size."""
+        """This slot's shard of the flat f32 params."""
+        return self._shard(flatten_tree(params))
+
+    def _shard(self, flat: torch.Tensor) -> torch.Tensor:
+        """This slot's shard of a flat vector, zero-padded to a multiple of
+        the station axis size."""
         mesh = self.mesh
-        flat = flatten_tree(params)
         n_pad = padded_flat_size(flat.numel(), mesh.station_axis_size)
         flat = F.pad(flat, (0, n_pad - flat.numel()))
         chunk = n_pad // mesh.station_axis_size
@@ -377,8 +411,8 @@ class FedAvg:
                             for _ in range(n_rounds)])
 
     def _noise_shape(self, params: Pytree) -> tuple[int, int] | None:
-        """``(S, n_pad)`` of a round's int8 rounding noise, None when the
-        compressor draws none."""
+        """``(S, n_pad)`` of a round's int8 rounding noise (the global S
+        across ranks), None when the compressor draws none."""
         comp = self.spec.compressor
         if not (self._compressing and comp.int8):
             return None
@@ -387,14 +421,14 @@ class FedAvg:
     def _draws(self, counts: torch.Tensor, params: Pytree, key: Key | None,
                batch_idx: Any | None, noise: Any | None, n_rounds: int):
         """A function of the round ``k`` that returns its batch indices
-        ``[S, local_steps, batch]`` (``S_local`` across ranks) and rounding
-        noise ``[S, n_pad]`` (None without int8): the given ones (one
+        ``[S, local_steps, batch]`` and rounding noise ``[S, n_pad]`` (None
+        without int8), each ``S_local`` across ranks: the given ones (one
         round's, for every round, or row ``k`` of each round's), else drawn
         with ``key`` when called, its indices first. Called for k = 0, 1,
         ... in turn, it holds one round's draws at a time. Across ranks
-        every rank draws the global ``[S, ...]`` indices from the key and
-        keeps its own stations' rows, so the round is the one-process
-        round whatever the layout."""
+        every rank draws the global ``[S, ...]`` indices and noise from the
+        key and keeps its own stations' rows, so the round is the
+        one-process round whatever the layout."""
         spec = self.spec
         stations = self.mesh.local_stations
         rows = slice(stations.start, stations.stop)
@@ -411,15 +445,16 @@ class FedAvg:
         idx = (None if draw_idx else
                self._given("batch_idx", batch_idx, idx_shape, torch.int64))
         u = (None if u_shape is None or draw_u else
-             self._given("noise", noise, (n_rounds,) + u_shape,
+             self._given("noise", noise,
+                         (n_rounds, len(stations), u_shape[1]),
                          torch.float32))
 
         def draw(k: int):
             k_idx = self._draw_idx(counts, gen)[rows] if draw_idx else idx[k]
             if u_shape is None:
                 return k_idx, None
-            return k_idx, (draw_noise(gen, u_shape, self.device) if draw_u
-                           else u[k])
+            return k_idx, (draw_noise(gen, u_shape, self.device)[rows]
+                           if draw_u else u[k])
 
         return draw
 
@@ -445,14 +480,16 @@ class FedAvg:
         on the device (a 0-d int32 tensor) so a captured round reads it on
         every replay. With a compressor the state is ``{"server":
         <optimizer state>, "ef": [S, N]}``, each station's error-feedback
-        accumulator starting at zero."""
+        accumulator starting at zero (``[S_local, N]``, the local
+        stations' rows, across ranks)."""
         params = self._device_params(params)
         if self.spec.shard_server_update:
             state = self.server_opt.init(self._param_shard(params))
         else:
             state = self.server_opt.init(params)
         if self._compressing:
-            ef = torch.zeros((self.mesh.n_stations, flat_size(params)),
+            ef = torch.zeros((len(self.mesh.local_stations),
+                              flat_size(params)),
                              dtype=torch.float32, device=self.device)
             state = {"server": state, "ef": ef}
         return self._device_state(state)
@@ -536,11 +573,13 @@ class FedAvg:
 
     def _record_wire(self, params: Pytree, n_rounds: int = 1) -> None:
         """Host-side wire accounting of the compressed delta uplink
-        (``v6t_compress_*`` series); metadata only."""
+        (``v6t_compress_*`` series); metadata only. Each rank counts the
+        uplinks of its own stations, so the ranks count each station
+        once."""
         if self._compressing:
             record_round_telemetry(
                 self.spec.compressor, flat_size(params),
-                self.mesh.n_stations, rounds=n_rounds,
+                len(self.mesh.local_stations), rounds=n_rounds,
             )
 
     def _one_process(self, name: str) -> None:

@@ -2,9 +2,9 @@
 //
 // Replaces the Pallas TPU kernel vantage6_tpu/ops/flash_attention.py::_kernel
 // (launched by _flash_forward through pl.pallas_call) for bf16 inputs at
-// every head dim from 8 to 256 in steps of 8 (the wrapper zero-pads any
-// other D up to a multiple of 8). It is instantiated at widths W = 16, 32,
-// 64, 128 and 256; a call at head dim d runs the narrowest W >= d, loads
+// every head dim that is a multiple of 8 (the wrapper zero-pads any other D
+// up to one). Up to 256 it is instantiated at widths W = 16, 32, 64, 128
+// and 256; a call at head dim d runs the narrowest W >= d, loads
 // the true d columns of each row and zero-fills the shared-memory tile up
 // to W, so the padded depth adds exactly 0 to every score and the padded
 // output columns, never stored, are 0. It computes the same function:
@@ -70,6 +70,33 @@
 //   work), partly visible (per-element causal and k_valid mask), or
 //   invisible (skipped: it would add exactly 0). Tiles past the causal
 //   horizon of the whole block are never loaded.
+//
+// Head dims above 256 (flash_fwd_wgmma_wide_kernel). A W = 512 copy of the
+// design above fits neither shared memory (128 KB of Q, 256 KB of stages)
+// nor the registers (a 256-register O accumulator). So O is cut into
+// column slabs of at most SLAB = 256, one more grid dimension: each block
+// owns one slab of O, with its own m and l. Every slab needs the whole S =
+// Q K^T over the full depth, so each block accumulates S in its 32
+// registers over depth chunks of DEPTH = 128 columns: chunk c of the Q tile
+// and of the key tile's K move through the two-stage cp.async ring (48 KB
+// a stage), the next chunk in flight while this one is multiplied, and the
+// key tile's V slab comes in with its first chunk; after the last chunk S
+// is whole and the softmax and O += P V run as above on the slab. A depth
+// chunk or slab that runs past d is zero-filled by the copy and adds 0, as
+// the padded widths do (D = 300 pads to 304: chunks 128, 128 and 48 of
+// 128; slabs 256 and 48 of 64). The slabs compute the same S from the same
+// operands in the same order, so m, l and p are bit-equal across slabs.
+// Full slabs run at W = 256; a tail slab of at most 128 columns runs in a
+// second launch at W = 64 or 128, a wider one as one more W = 256 slab. The
+// Q tile is reloaded from L2 for every key tile, as it no longer fits
+// beside the stages. A negative scale negates S in registers (exact, as
+// rounding is symmetric) instead of the Q tile.
+// Cost: ceil(d / 256) passes of Q K^T (one per slab) where one would do,
+// and as many exps. At [B=4, H=8, T=1024, D=512] causal the visible pairs
+// need 4*D*BH*T*(T+1)/2 = 3.44e10 operations, 34.8 us at the bf16 peak,
+// and q, k, v and o move 134 MB, 40.1 us: bytes bound it. The kernel
+// issues two passes of Q K^T, 5.16e10 operations, 52.2 us at the peak, and
+// 3.36e7 exps, 8.0 us.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cmath>
@@ -111,6 +138,23 @@ struct Layout {
   static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;
 };
 
+// Head dims above SLAB (the wide kernel): O in slabs of at most SLAB
+// columns, S = Q K^T over depth chunks of DEPTH columns.
+constexpr int SLAB = 256;
+constexpr int DEPTH = 128;
+
+// The wide kernel's shared memory at O slab width W: STAGES stages of a
+// [BLOCK_Q, DEPTH] Q chunk (32 KB) and a [BLOCK_K, DEPTH] K chunk (16 KB),
+// then STAGES [BLOCK_K, W] V slab tiles (32 KB at W = 256): 160 KB, each
+// tile on a 1024-byte boundary.
+template <int W>
+struct WideLayout {
+  static constexpr uint32_t Q_BYTES = Layout<DEPTH>::Q_BYTES;
+  static constexpr uint32_t STAGE_BYTES = Q_BYTES + Layout<DEPTH>::KV_BYTES;
+  static constexpr uint32_t V_BYTES = Layout<W>::KV_BYTES;
+  static constexpr uint32_t SMEM_BYTES = STAGES * (STAGE_BYTES + V_BYTES);
+};
+
 // The hardware's swizzle on shared-memory byte addresses: bits [4, 4+b) xor
 // bits [7, 7+b), b = 3, 2, 1 for the 128-, 64- and 32-byte patterns.
 __device__ __forceinline__ uint32_t swizzle(uint32_t off, uint32_t mask) {
@@ -134,13 +178,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copy rows [row0, row0 + ROWS) of a row-major [t, d] matrix (d a multiple
-// of 8, at most D) into a swizzled W = D tile at shared address dst. Rows at
-// or past t and columns at or past d are zero-filled.
+// Copy rows [row0, row0 + ROWS) and columns [col0, col0 + D) of a
+// row-major [t, d] matrix (d and col0 multiples of 8) into a swizzled W = D
+// tile at shared address dst. Rows at or past t and columns at or past d
+// are zero-filled.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src, int row0,
-                                          int t, int d, int tid) {
+                                          int t, int d, int tid,
+                                          int col0 = 0) {
   using L = Layout<D>;
   constexpr int N = ROWS * L::CHUNKS;
 #pragma unroll
@@ -151,9 +197,10 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
       const int cc = c % L::CHUNKS;
       const uint32_t off = (cc / L::ATOM_CHUNKS) * ROWS * L::ROW_BYTES +
                            row * L::ROW_BYTES + (cc % L::ATOM_CHUNKS) * 16;
-      const bool in = row0 + row < t && cc * 8 < d;
+      const bool in = row0 + row < t && col0 + cc * 8 < d;
       const __nv_bfloat16* g =
-          src + (in ? static_cast<size_t>(row0 + row) * d + cc * 8 : 0);
+          src + (in ? static_cast<size_t>(row0 + row) * d + col0 + cc * 8
+                    : 0);
       cp_async16(dst + swizzle(off, L::MASK), g, in ? 16 : 0);
     }
   }
@@ -392,6 +439,116 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// One key tile's online-softmax update and O += P V on the thread's two
+// rows. s holds the tile's scores q.k, unscaled; k0 is the tile's first
+// key, pos0 the global position of the thread's first row, vt_s the tile's
+// V (W = D columns) in shared memory.
+template <int D>
+__device__ __forceinline__ void softmax_pv(float (&s)[32], float (&acc)[D / 2],
+                                           float (&m)[2], float (&l)[2],
+                                           bool full, float scale_log2,
+                                           int k0, int t_k, int pos0,
+                                           int causal, int k_offset, int lane,
+                                           uint32_t vt_s) {
+  const float m_floor = M_FLOOR * LOG2E;
+  // scores in log2 units are s * c, c = |scale| * log2(e) >= 0 (a negative
+  // scale negated the scores instead). A fully visible tile keeps s and
+  // folds c into the exp's FMA: max(s * c) = c * max(s) exactly, as
+  // rounding is monotone. A partly visible tile is scaled first and its
+  // masked scores set to -inf (p = exp2(-inf) = 0, as exp(-1e30 - m) is,
+  // also at c = 0); then c = 1.
+  float c = scale_log2;
+  if (!full) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = k0 + (i / 4) * 8 + 2 * (lane % 4) + (i % 2);
+      const int pos = pos0 + 8 * ((i / 2) % 2);
+      const bool ok = col < t_k && (!causal || pos >= k_offset + col);
+      s[i] = ok ? s[i] * scale_log2 : -INFINITY;
+    }
+    c = 1.f;
+  }
+
+  // online softmax on the thread's two rows i, m in log2 units
+  float m_new[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      mx = fmaxf(mx, fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    m_new[i] = fmaxf(fmaxf(m[i], mx * c), m_floor);
+    const float corr = exp2_approx(m[i] - m_new[i]);
+    l[i] *= corr;
+    m[i] = m_new[i];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[4 * n + 2 * i] *= corr;
+      acc[4 * n + 2 * i + 1] *= corr;
+    }
+  }
+
+  // O += P V, one k16 slice of P at a time, so that only its four
+  // registers are live (with all of P live at D = 128, ptxas runs out of
+  // registers and serialises the wgmmas): slice kk is score columns
+  // [16kk, 16kk + 16), rows i = 0, 1 of column blocks n = 2kk and
+  // 2kk + 1, and wgmma's register A fragment is {(n0, i0), (n0, i1),
+  // (n1, i0), (n1, i1)}. The exp2 of one slice overlaps the product of
+  // the one before.
+  fence_regs(acc);
+#pragma unroll
+  for (int kk = 0; kk < BLOCK_K / 16; ++kk) {
+    uint32_t a[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int n = 2 * kk + r / 2;
+      const int i = r % 2;
+      const float p0 = exp2_approx(fmaf(s[4 * n + 2 * i], c, -m_new[i]));
+      const float p1 =
+          exp2_approx(fmaf(s[4 * n + 2 * i + 1], c, -m_new[i]));
+      l[i] += p0 + p1;  // the f32 p, before the bf16 rounding
+      a[r] = pack_bf16(p0, p1);
+    }
+    wgmma_fence();  // a was written since the last wgmma
+    wgmma_rs<D>(acc, a, vmajor_desc<D>(vt_s, kk));
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+}
+
+// The thread's two output rows, columns [col0, col0 + D) of o (row stride
+// d): acc / l, with l summed over the quad first and l == 0 (a fully masked
+// row) giving 0. Columns at or past d are the zero padding's: not stored.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           float (&l)[2],
+                                           __nv_bfloat16* og, int wq0,
+                                           int row0, int w_rows, int d,
+                                           int col0, int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= w_rows) continue;
+    const float denom = l[i] > 0.f ? l[i] : 1.f;
+    __nv_bfloat16* dst =
+        og + static_cast<size_t>(wq0 + row) * d + col0 + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      if (col0 + 8 * n < d)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * i] / denom,
+                                  acc[4 * n + 2 * i + 1] / denom);
+  }
+}
+
 // D is the instantiated width W; d (a multiple of 8, at most D) is the
 // head dim of q, k, v and o, the row stride in device memory. PAD = false
 // is the instantiation for d == D, where d is a constant (the padded one
@@ -453,7 +610,6 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   // this thread's two rows: 16 * warp + lane / 4, and 8 below it
   const int row0 = warp * 16 + lane / 4;
   const int pos0 = r_lo + row0;  // global position of row0
-  const float m_floor = M_FLOOR * LOG2E;
 
   float acc[D / 2];
   float s[32];
@@ -489,7 +645,6 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     if (visible) {
       const bool full = kv == BLOCK_K && (!causal || r_lo >= c_hi);
       const uint32_t kt_s = k_s + stage * L::KV_BYTES;
-      const uint32_t vt_s = v_s + stage * L::KV_BYTES;
 
       fence_regs(s);
       wgmma_fence();
@@ -502,99 +657,132 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(s);
-
-      // scores in log2 units are s * c, c = |scale| * log2(e) >= 0 (a
-      // negative scale negated Q instead). A fully visible tile keeps s and
-      // folds c into the exp's FMA: max(s * c) = c * max(s) exactly, as
-      // rounding is monotone. A partly visible tile is scaled first and its
-      // masked scores set to -inf (p = exp2(-inf) = 0, as exp(-1e30 - m)
-      // is, also at c = 0); then c = 1.
-      float c = scale_log2;
-      if (!full) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int col = k0 + (i / 4) * 8 + 2 * (lane % 4) + (i % 2);
-          const int pos = pos0 + 8 * ((i / 2) % 2);
-          const bool ok = col < t_k && (!causal || pos >= k_offset + col);
-          s[i] = ok ? s[i] * scale_log2 : -INFINITY;
-        }
-        c = 1.f;
-      }
-
-      // online softmax on the thread's two rows i, m in log2 units
-      float m_new[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          mx = fmaxf(mx, fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        m_new[i] = fmaxf(fmaxf(m[i], mx * c), m_floor);
-        const float corr = exp2_approx(m[i] - m_new[i]);
-        l[i] *= corr;
-        m[i] = m_new[i];
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          acc[4 * n + 2 * i] *= corr;
-          acc[4 * n + 2 * i + 1] *= corr;
-        }
-      }
-
-      // O += P V, one k16 slice of P at a time, so that only its four
-      // registers are live (with all of P live at D = 128, ptxas runs out of
-      // registers and serialises the wgmmas): slice kk is score columns
-      // [16kk, 16kk + 16), rows i = 0, 1 of column blocks n = 2kk and
-      // 2kk + 1, and wgmma's register A fragment is {(n0, i0), (n0, i1),
-      // (n1, i0), (n1, i1)}. The exp2 of one slice overlaps the product of
-      // the one before.
-      fence_regs(acc);
-#pragma unroll
-      for (int kk = 0; kk < BLOCK_K / 16; ++kk) {
-        uint32_t a[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int n = 2 * kk + r / 2;
-          const int i = r % 2;
-          const float p0 =
-              exp2_approx(fmaf(s[4 * n + 2 * i], c, -m_new[i]));
-          const float p1 =
-              exp2_approx(fmaf(s[4 * n + 2 * i + 1], c, -m_new[i]));
-          l[i] += p0 + p1;  // the f32 p, before the bf16 rounding
-          a[r] = pack_bf16(p0, p1);
-        }
-        wgmma_fence();  // a was written since the last wgmma
-        wgmma_rs<D>(acc, a, vmajor_desc<D>(vt_s, kk));
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(acc);
+      softmax_pv<D>(s, acc, m, l, full, scale_log2, k0, t_k, pos0, causal,
+                    k_offset, lane, v_s + stage * L::KV_BYTES);
     }
     __syncthreads();  // the next iteration refills the other stage: this
                       // one is free for the tile after it
   }
   cp_async_wait<0>();
+  store_rows<D>(acc, l, og, wq0, row0, w_rows, d, 0, lane);
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+// Head dims above 256 (see "Head dims above 256" at the top). W is the
+// width of the block's O slab, output columns [col0, col0 + W) with
+// col0 = slab0 + W * blockIdx.z; d (a multiple of 8, above 256) is the head
+// dim and row stride. The block walks steps j = kt * n_c + c: step j
+// stages depth chunk c (DEPTH columns) of the Q tile and of key tile kt's
+// K, and with c = 0 key tile kt's V slab, while step j - 1 is multiplied.
+template <int W>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ o, int t_q, int t_k,
+                            int d, int slab0, int q_offset, int k_offset,
+                            int causal, float scale_log2, int negate) {
+  using WL = WideLayout<W>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) &
+      ~1023u;
+  const uint32_t v_base = base + STAGES * WL::STAGE_BYTES;  // STAGES V slabs
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BLOCK_Q;  // heaviest first
+  const int col0 = slab0 + blockIdx.z * W;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+
+  const __nv_bfloat16* qg = q + static_cast<size_t>(bh) * t_q * d;
+  const __nv_bfloat16* kg = k + static_cast<size_t>(bh) * t_k * d;
+  const __nv_bfloat16* vg = v + static_cast<size_t>(bh) * t_k * d;
+  __nv_bfloat16* og = o + static_cast<size_t>(bh) * t_q * d;
+
+  int k_end = t_k;
+  if (causal) {
+    const int last_q = q_offset + min(q0 + BLOCK_Q, t_q) - 1;
+    k_end = min(t_k, last_q - k_offset + 1);
   }
+  const int n_kt = k_end > 0 ? (k_end + BLOCK_K - 1) / BLOCK_K : 0;
+  const int n_c = (d + DEPTH - 1) / DEPTH;  // depth chunks
+  const int n_steps = n_kt * n_c;
+
+  auto stage_in = [&](int j) {
+    const int kt = j / n_c;
+    const int c = j % n_c;
+    const uint32_t st = base + (j % STAGES) * WL::STAGE_BYTES;
+    load_tile<DEPTH, BLOCK_Q>(st, qg, q0, t_q, d, tid, c * DEPTH);
+    load_tile<DEPTH, BLOCK_K>(st + WL::Q_BYTES, kg, kt * BLOCK_K, t_k, d, tid,
+                              c * DEPTH);
+    if (c == 0)
+      load_tile<W, BLOCK_K>(v_base + (kt % STAGES) * WL::V_BYTES, vg,
+                            kt * BLOCK_K, t_k, d, tid, col0);
+  };
+  if (n_steps > 0) stage_in(0);
+  cp_async_commit();
+
+  const int wq0 = q0 + wg * WG_ROWS;
+  const int w_rows = min(WG_ROWS, t_q - wq0);
+  const int r_lo = q_offset + wq0;
+  const int r_hi = r_lo + w_rows - 1;
+  const int row0 = warp * 16 + lane / 4;
+  const int pos0 = r_lo + row0;
+
+  float acc[W / 2];
+  float s[32];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    if (row >= w_rows) continue;
-    const float denom = l[i] > 0.f ? l[i] : 1.f;
-    __nv_bfloat16* dst =
-        og + static_cast<size_t>(wq0 + row) * d + 2 * (lane % 4);
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      if (8 * n < d)  // columns past d are the zero padding's
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
-            __floats2bfloat162_rn(acc[4 * n + 2 * i] / denom,
-                                  acc[4 * n + 2 * i + 1] / denom);
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BLOCK_K;
+    const int kv = min(BLOCK_K, t_k - k0);
+    const int c_lo = k_offset + k0;
+    const int c_hi = c_lo + kv - 1;
+    const bool visible = w_rows > 0 && !(causal && r_hi < c_lo);
+    const bool full = kv == BLOCK_K && (!causal || r_lo >= c_hi);
+    for (int c = 0; c < n_c; ++c) {
+      const int j = kt * n_c + c;
+      if (j + 1 < n_steps) stage_in(j + 1);  // in flight during this step
+      cp_async_commit();
+      cp_async_wait<1>();  // step j's chunks (and V slab) have landed
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (visible) {
+        const uint32_t st = base + (j % STAGES) * WL::STAGE_BYTES;
+        fence_regs(s);
+        wgmma_fence();
+        // S accumulates over the chunks: the first product of chunk 0
+        // overwrites it. A tail chunk's zero-filled columns add 0.
+#pragma unroll
+        for (int ks = 0; ks < DEPTH / 16; ++ks)
+          wgmma_ss_n64(s, kmajor_desc<DEPTH>(st, BLOCK_Q, wg * WG_ROWS, ks),
+                       kmajor_desc<DEPTH>(st + WL::Q_BYTES, BLOCK_K, 0, ks),
+                       c > 0 || ks > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        if (c == n_c - 1) {  // S is whole: every slab sees the same S
+          if (negate) {  // q.k of -q, exactly: rounding is symmetric
+#pragma unroll
+            for (int i = 0; i < 32; ++i) s[i] = -s[i];
+          }
+          softmax_pv<W>(s, acc, m, l, full, scale_log2, k0, t_k, pos0,
+                        causal, k_offset, lane,
+                        v_base + (kt % STAGES) * WL::V_BYTES);
+        }
+      }
+      __syncthreads();  // step j's stage is free for step j + 2
+    }
   }
+  cp_async_wait<0>();
+  store_rows<W>(acc, l, og, wq0, row0, w_rows, d, col0, lane);
 }
 
 template <int D>
@@ -620,22 +808,61 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// n_slabs O slabs of width W from column slab0
+template <int W>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        int bh, int t_q, int t_k, int d, int slab0,
+                        int n_slabs, int q_offset, int k_offset, int causal,
+                        float scale, cudaStream_t stream) {
+  const size_t bytes = WideLayout<W>::SMEM_BYTES + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_wide_kernel<W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (t_q + BLOCK_Q - 1) / BLOCK_Q, n_slabs);
+  flash_fwd_wgmma_wide_kernel<W><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      t_q, t_k, d, slab0, q_offset, k_offset, causal,
+      std::fabs(scale) * LOG2E, scale < 0.f);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, o: [bh, t_q, d]; k, v: [bh, t_k, d]; all contiguous bfloat16 (dtype 1)
-// with 16-byte aligned data, d a multiple of 8 from 8 to 256, any finite
-// scale. Launches on `stream` and returns the launch status
-// (cudaGetLastError); it does not synchronise.
+// with 16-byte aligned data, d a multiple of 8 (any size), any finite
+// scale. Launches on `stream` (two kernels for a d above 256 whose last
+// slab is narrower) and returns the launch status (cudaGetLastError); it
+// does not synchronise.
 extern "C" int v6t_flash_attention_fwd_tc(const void* q, const void* k,
                                           const void* v, void* o, int dtype,
                                           int bh, int t_q, int t_k, int d,
                                           int q_offset, int k_offset,
                                           int causal, float scale,
                                           void* stream) {
-  if (dtype != 1 || bh <= 0 || t_q <= 0 || t_k < 0 || d < 8 || d > 256 ||
-      d % 8 != 0 || !std::isfinite(scale))
+  if (dtype != 1 || bh <= 0 || t_q <= 0 || t_k < 0 || d < 8 || d % 8 != 0 ||
+      !std::isfinite(scale))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > SLAB) {
+    // slabs of SLAB columns; a tail above 128 columns is one more of them,
+    // a narrower tail a second launch at the narrowest W >= the tail
+    const int full = d / SLAB;
+    const int tail = d % SLAB;
+    if (tail > 128)
+      return launch_wide<SLAB>(q, k, v, o, bh, t_q, t_k, d, 0, full + 1,
+                               q_offset, k_offset, causal, scale, s);
+    cudaError_t err = launch_wide<SLAB>(q, k, v, o, bh, t_q, t_k, d, 0, full,
+                                        q_offset, k_offset, causal, scale, s);
+    if (err != cudaSuccess || tail == 0) return err;
+    if (tail <= 64)
+      return launch_wide<64>(q, k, v, o, bh, t_q, t_k, d, full * SLAB, 1,
+                             q_offset, k_offset, causal, scale, s);
+    return launch_wide<128>(q, k, v, o, bh, t_q, t_k, d, full * SLAB, 1,
+                            q_offset, k_offset, causal, scale, s);
+  }
   // the narrowest instantiated width W >= d
   if (d <= 16)
     return launch<16>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset,

@@ -3,9 +3,9 @@
 //
 // Replaces the Pallas TPU kernel vantage6_tpu/ops/flash_attention.py::_kernel
 // (launched by _flash_forward through pl.pallas_call) for f32 inputs at
-// every head dim from 8 to 256 in steps of 8 (the wrapper zero-pads any
-// other D up to a multiple of 8). It is instantiated at widths W = 8, 16,
-// 32, 64, 128 and 256; a call at head dim d runs the narrowest W >= d,
+// every head dim that is a multiple of 8 (the wrapper zero-pads any other D
+// up to one). Up to 256 it is instantiated at widths W = 8, 16, 32, 64, 128
+// and 256; a call at head dim d runs the narrowest W >= d,
 // loads the true d columns of each row and zero-fills the shared-memory
 // tile up to W, skips the k-steps and output n-tiles that lie wholly past d,
 // and stores only the true d columns. It computes the same function:
@@ -81,6 +81,30 @@
 //   partly visible (per-element causal and k_valid mask) or invisible
 //   (skipped: it would add exactly 0). Tiles past the causal horizon of the
 //   whole block are never loaded.
+//
+// Head dims above 256 (flash_fwd_tf32x3_wide_kernel). At D = 512 the Q tile
+// alone would take 256 KB. So O is cut into column slabs of at most
+// SLAB = 256, one more grid dimension: each block owns one slab of O, with
+// its own m and l. Every slab needs the whole S = Q K^T, so each warp
+// accumulates its S fragment over depth chunks of DEPTH = 64 columns: chunk
+// c of the Q tile and of the key tile's K move through the two-stage
+// cp.async ring (50 KB a stage), the next chunk in flight while this one is
+// multiplied, and the key tile's V slab comes in with its first chunk; after
+// the last chunk S is whole and the softmax and O += P V run as above on
+// the slab. Key tiles are 32 keys: the Q chunk, reloaded from L2 for every
+// key tile as it no longer fits beside the stages, is then read once per
+// 32 keys, and 165 KB of shared memory hold the ring. A depth chunk or slab
+// that runs past d is zero-filled by the copy, its k-step pairs and n-tiles
+// past d skipped (D = 300 pads to 304: chunks 64 x 4 and 48 of 64; slabs
+// 256 and 48 of 64). The slabs compute the same S from the same operands
+// in the same order, so m, l and p are bit-equal across slabs. Full slabs
+// run at W = 256; a tail slab of at most 128 columns runs in a second
+// launch at W = 64 or 128, a wider one as one more W = 256 slab.
+// Cost: ceil(d / 256) passes of Q K^T (one per slab) where one would do,
+// and as many exps. At [B=4, H=8, T=1024, D=512] causal, f32: q, k, v and o
+// move 268 MB, 80.1 us; the visible pairs need 4*D*BH*T*(T+1)/2 = 3.44e10
+// operations, 69.5 us at the TF32 peak, 208 us with three passes; the
+// kernel issues two passes of Q K^T, 1.5 times that: 313 us.
 #include <cuda_runtime.h>
 #include <cmath>
 #include <stdint.h>
@@ -115,6 +139,30 @@ struct Layout {
       sizeof(float) * (Q_FLOATS + STAGES * (K_FLOATS + V_FLOATS));
 };
 
+// Head dims above SLAB (the wide kernel): O in slabs of at most SLAB
+// columns, S = Q K^T over depth chunks of DEPTH columns.
+constexpr int SLAB = 256;
+constexpr int DEPTH = 64;
+
+// The wide kernel's tiles and shared memory at O slab width W: 8 warps of
+// 16 query rows over 32-key tiles; STAGES stages of a [BLOCK_Q, DEPTH] Q
+// chunk (40 KB) and a [BLOCK_K, DEPTH] K chunk (10 KB), rows padded as
+// Layout<DEPTH>'s, then STAGES [BLOCK_K, W] V slab tiles (33 KB at
+// W = 256): 165 KB at W = 256.
+template <int W>
+struct WideLayout {
+  static constexpr int THREADS = Layout<DEPTH>::THREADS;
+  static constexpr int BLOCK_Q = Layout<DEPTH>::BLOCK_Q;
+  static constexpr int BLOCK_K = 32;
+  static constexpr int QK_STRIDE = Layout<DEPTH>::QK_STRIDE;
+  static constexpr int V_STRIDE = W + 4;
+  static constexpr int Q_FLOATS = BLOCK_Q * QK_STRIDE;
+  static constexpr int STAGE_FLOATS = Q_FLOATS + BLOCK_K * QK_STRIDE;
+  static constexpr int V_FLOATS = BLOCK_K * V_STRIDE;
+  static constexpr size_t SMEM_BYTES =
+      sizeof(float) * STAGES * (STAGE_FLOATS + V_FLOATS);
+};
+
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   // src_bytes = 0 zero-fills the 16 bytes
@@ -132,12 +180,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copy rows [row0, row0 + ROWS) of a row-major [t, d] f32 matrix (d a
-// multiple of 8, at most D) into a W = D tile with rows STRIDE floats
-// apart. Rows at or past t and columns at or past d are zero-filled.
+// Copy rows [row0, row0 + ROWS) and columns [col0, col0 + D) of a
+// row-major [t, d] f32 matrix (d and col0 multiples of 8) into a W = D tile
+// with rows STRIDE floats apart. Rows at or past t and columns at or past d
+// are zero-filled.
 template <int D, int ROWS, int STRIDE>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int t, int d, int tid) {
+                                          int row0, int t, int d, int tid,
+                                          int col0 = 0) {
   constexpr int THREADS = Layout<D>::THREADS;
   constexpr int CHUNKS = D / 4;  // 16-byte chunks a row
   constexpr int N = ROWS * CHUNKS;
@@ -148,9 +198,10 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
     if (N % THREADS == 0 || c < N) {
       const int row = c / CHUNKS;
       const int cc = c % CHUNKS;
-      const bool in = row0 + row < t && cc * 4 < d;
+      const bool in = row0 + row < t && col0 + cc * 4 < d;
       const float* g =
-          src + (in ? static_cast<size_t>(row0 + row) * d + cc * 4 : 0);
+          src + (in ? static_cast<size_t>(row0 + row) * d + col0 + cc * 4
+                    : 0);
       cp_async16(base + 4 * (row * STRIDE + cc * 4), g, in ? 16 : 0);
     }
   }
@@ -222,6 +273,153 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// s += Q K^T over the first CHUNK columns of a staged Q tile and K tile
+// whose rows are STRIDE floats apart: q_w points at this lane's row g,
+// column QKV * t of Q, k_w at row g, column QKV * t of K (slice j holds
+// keys [8j, 8j + 8)). Each load of QKV columns serves QKV / 2 k-steps;
+// step pairs at or past `cols` (the true columns left) read zero-filled
+// columns and add 0, so they are skipped.
+template <int CHUNK, int STRIDE, int QKV, int SLICES>
+__device__ __forceinline__ void scores(float (&s)[SLICES][4],
+                                       const float* q_w, const float* k_w,
+                                       int cols) {
+#pragma unroll
+  for (int c = 0; c < CHUNK / (4 * QKV); ++c) {
+    if (4 * QKV * c >= cols) continue;
+    float qa[QKV], qb[QKV];  // rows g and g + 8
+    lds(qa, q_w + 4 * QKV * c);
+    lds(qb, q_w + 8 * STRIDE + 4 * QKV * c);
+    FragA a[QKV / 2];
+#pragma unroll
+    for (int h = 0; h < QKV / 2; ++h)
+      a[h] = frag_a(qa[2 * h], qb[2 * h], qa[2 * h + 1], qb[2 * h + 1]);
+#pragma unroll
+    for (int j = 0; j < SLICES; ++j) {
+      float kb[QKV];
+      lds(kb, k_w + 8 * j * STRIDE + 4 * QKV * c);
+#pragma unroll
+      for (int h = 0; h < QKV / 2; ++h)
+        mma_3xtf32(s[j], a[h], kb[2 * h], kb[2 * h + 1]);
+    }
+  }
+}
+
+// One key tile's online-softmax update and O += P V on the lane's rows
+// g and g + 8. s holds the tile's scores q.k, unscaled; k0 is the tile's
+// first key, pos0 the global position of row g; vt_s points at row 2t,
+// column NV * g of the tile's V (W columns, rows V_STRIDE floats apart), of
+// which the first `cols` are true columns.
+template <int W, int SLICES, int NV, int V_STRIDE>
+__device__ __forceinline__ void softmax_pv(float (&s)[SLICES][4],
+                                           float (&acc)[W / 8][4],
+                                           float (&m)[2], float (&l)[2],
+                                           bool full, float scale_log2,
+                                           int k0, int t_k, int pos0,
+                                           int causal, int k_offset, int t,
+                                           const float* vt_s, int cols) {
+  const float m_floor = M_FLOOR * LOG2E;
+  // scores in log2 units; masked scores -inf: p = exp2(-inf) = 0, as
+  // exp(-1e30 - m) is
+#pragma unroll
+  for (int j = 0; j < SLICES; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * scale_log2;
+      if (!full) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const int pos = pos0 + 8 * (e >> 1);
+        const bool ok = col < t_k && (!causal || pos >= k_offset + col);
+        x = ok ? x : -INFINITY;
+      }
+      s[j][e] = x;
+    }
+
+  // online softmax on the lane's rows i = 0 (g) and 1 (g + 8)
+  float m_new[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < SLICES; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    m_new[i] = fmaxf(fmaxf(m[i], mx), m_floor);
+    const float corr = exp2_approx(m[i] - m_new[i]);
+    l[i] *= corr;
+    m[i] = m_new[i];
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n) {
+      acc[n][2 * i] *= corr;
+      acc[n][2 * i + 1] *= corr;
+    }
+  }
+
+  // O += P V, one 8-key slice at a time; slice kk's S fragment, in the
+  // order {c0, c2, c1, c3}, is its A fragment under the key permutation
+#pragma unroll
+  for (int kk = 0; kk < SLICES; ++kk) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[e] = exp2_approx(s[kk][e] - m_new[e >> 1]);
+    l[0] += p[0] + p[1];
+    l[1] += p[2] + p[3];
+    const FragA a = frag_a(p[0], p[2], p[1], p[3]);
+    const float* vb = vt_s + 8 * kk * V_STRIDE;
+#pragma unroll
+    for (int c = 0; c < W / (8 * NV); ++c) {
+      if (8 * NV * c >= cols) continue;  // output columns past d
+      float v0[NV], v1[NV];  // keys 2t and 2t + 1, NV n-tiles
+      lds(v0, vb + 8 * NV * c);
+      lds(v1, vb + V_STRIDE + 8 * NV * c);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) mma_3xtf32(acc[NV * c + i], a, v0[i], v1[i]);
+    }
+  }
+}
+
+// The lane's output rows g and g + 8 of the warp's rows from wq0, columns
+// [col0, col0 + W) of o (row stride d): acc / l, with l summed over the
+// quad first and l == 0 (a fully masked row) giving 0. acc[NV * c + i]
+// [2 * row + e] is column col0 + 8 * NV * c + NV * (2t + e) + i; columns
+// at or past d are not stored.
+template <int W, int NV>
+__device__ __forceinline__ void store_rows(const float (&acc)[W / 8][4],
+                                           float (&l)[2], float* og, int wq0,
+                                           int g, int t, int w_rows, int d,
+                                           int col0) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = g + 8 * r;
+    if (row >= w_rows) continue;
+    const float inv = 1.f / (l[r] > 0.f ? l[r] : 1.f);
+    float* dst = og + static_cast<size_t>(wq0 + row) * d + col0;
+#pragma unroll
+    for (int c = 0; c < W / (8 * NV); ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // NV columns from a multiple of NV: all below d or all past it
+        if (col0 + 8 * NV * c + NV * (2 * t + e) >= d) continue;
+        float out[NV];
+#pragma unroll
+        for (int i = 0; i < NV; ++i) out[i] = acc[NV * c + i][2 * r + e] * inv;
+        float* p = dst + 8 * NV * c + NV * (2 * t + e);
+        if constexpr (NV == 4)
+          *reinterpret_cast<float4*>(p) =
+              make_float4(out[0], out[1], out[2], out[3]);
+        else if constexpr (NV == 2)
+          *reinterpret_cast<float2*>(p) = make_float2(out[0], out[1]);
+        else
+          *p = out[0];
+      }
+  }
+}
+
 // D is the instantiated width W; d (a multiple of 8, at most D) is the
 // head dim of q, k, v and o, the row stride in device memory. PAD = false
 // is the instantiation for d == D, where d is a constant.
@@ -278,7 +476,6 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
   const int r_lo = q_offset + wq0;
   const int r_hi = r_lo + w_rows - 1;
   const int pos0 = r_lo + g;  // this lane's rows: g, and g + 8
-  const float m_floor = M_FLOOR * LOG2E;
   // the lane's Q and K values of a k-step pair start at column QKV * t
   const float* q_w = q_s + (16 * warp + g) * L::QK_STRIDE + QKV * t;
 
@@ -311,136 +508,142 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
     const bool visible = w_rows > 0 && !(causal && r_hi < c_lo);
     if (visible) {
       const bool full = kv == BLOCK_K && (!causal || r_lo >= c_hi);
-      const float* kt_s = k_s + stage * L::K_FLOATS + g * L::QK_STRIDE +
-                          QKV * t;
-      const float* vt_s = v_s + stage * L::V_FLOATS +
-                          2 * t * L::V_STRIDE + NV * g;
-
-      // S = Q K^T: slice j holds keys [8j, 8j + 8) of the tile; each load
-      // of QKV columns serves QKV / 2 k-steps; step pairs wholly past d
-      // read zero-filled columns and add 0, so they are skipped
       float s[SLICES][4];
 #pragma unroll
       for (int j = 0; j < SLICES; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int c = 0; c < D / (4 * QKV); ++c) {
-        if (4 * QKV * c >= d) continue;
-        float qa[QKV], qb[QKV];  // rows g and g + 8
-        lds(qa, q_w + 4 * QKV * c);
-        lds(qb, q_w + 8 * L::QK_STRIDE + 4 * QKV * c);
-        FragA a[QKV / 2];
-#pragma unroll
-        for (int h = 0; h < QKV / 2; ++h)
-          a[h] = frag_a(qa[2 * h], qb[2 * h], qa[2 * h + 1], qb[2 * h + 1]);
-#pragma unroll
-        for (int j = 0; j < SLICES; ++j) {
-          float kb[QKV];
-          lds(kb, kt_s + 8 * j * L::QK_STRIDE + 4 * QKV * c);
-#pragma unroll
-          for (int h = 0; h < QKV / 2; ++h)
-            mma_3xtf32(s[j], a[h], kb[2 * h], kb[2 * h + 1]);
-        }
-      }
-
-      // scores in log2 units; masked scores -inf: p = exp2(-inf) = 0, as
-      // exp(-1e30 - m) is
-#pragma unroll
-      for (int j = 0; j < SLICES; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * scale_log2;
-          if (!full) {
-            const int col = k0 + 8 * j + 2 * t + (e & 1);
-            const int pos = pos0 + 8 * (e >> 1);
-            const bool ok = col < t_k && (!causal || pos >= k_offset + col);
-            x = ok ? x : -INFINITY;
-          }
-          s[j][e] = x;
-        }
-
-      // online softmax on the lane's rows i = 0 (g) and 1 (g + 8)
-      float m_new[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < SLICES; ++j)
-          mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        m_new[i] = fmaxf(fmaxf(m[i], mx), m_floor);
-        const float corr = exp2_approx(m[i] - m_new[i]);
-        l[i] *= corr;
-        m[i] = m_new[i];
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          acc[n][2 * i] *= corr;
-          acc[n][2 * i + 1] *= corr;
-        }
-      }
-
-      // O += P V, one 8-key slice at a time; slice kk's S fragment, in the
-      // order {c0, c2, c1, c3}, is its A fragment under the key permutation
-#pragma unroll
-      for (int kk = 0; kk < SLICES; ++kk) {
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          p[e] = exp2_approx(s[kk][e] - m_new[e >> 1]);
-        l[0] += p[0] + p[1];
-        l[1] += p[2] + p[3];
-        const FragA a = frag_a(p[0], p[2], p[1], p[3]);
-        const float* vb = vt_s + 8 * kk * L::V_STRIDE;
-#pragma unroll
-        for (int c = 0; c < D / (8 * NV); ++c) {
-          if (8 * NV * c >= d) continue;  // output columns past d
-          float v0[NV], v1[NV];  // keys 2t and 2t + 1, NV n-tiles
-          lds(v0, vb + 8 * NV * c);
-          lds(v1, vb + L::V_STRIDE + 8 * NV * c);
-#pragma unroll
-          for (int i = 0; i < NV; ++i)
-            mma_3xtf32(acc[NV * c + i], a, v0[i], v1[i]);
-        }
-      }
+      scores<D, L::QK_STRIDE, QKV, SLICES>(
+          s, q_w,
+          k_s + stage * L::K_FLOATS + g * L::QK_STRIDE + QKV * t, d);
+      softmax_pv<D, SLICES, NV, L::V_STRIDE>(
+          s, acc, m, l, full, scale_log2, k0, t_k, pos0, causal, k_offset, t,
+          v_s + stage * L::V_FLOATS + 2 * t * L::V_STRIDE + NV * g, d);
     }
     __syncthreads();  // the next iteration refills the other stage: this
                       // one is free for the tile after it
   }
   cp_async_wait<0>();
+  store_rows<D, NV>(acc, l, og, wq0, g, t, w_rows, d, 0);
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+// Head dims above 256 (see "Head dims above 256" at the top). W is the
+// width of the block's O slab, output columns [col0, col0 + W) with
+// col0 = slab0 + W * blockIdx.z; d (a multiple of 8, above 256) is the head
+// dim and row stride. The block walks steps j = kt * n_c + c: step j
+// stages depth chunk c (DEPTH columns) of the Q tile and of key tile kt's
+// K, and with c = 0 key tile kt's V slab, while step j - 1 is multiplied.
+template <int W>
+__global__ void __launch_bounds__(WideLayout<W>::THREADS, 1)
+flash_fwd_tf32x3_wide_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             float* __restrict__ o, int t_q, int t_k, int d,
+                             int slab0, int q_offset, int k_offset,
+                             int causal, float scale_log2) {
+  using WL = WideLayout<W>;
+  constexpr int BLOCK_Q = WL::BLOCK_Q;
+  constexpr int BLOCK_K = WL::BLOCK_K;
+  constexpr int SLICES = BLOCK_K / 8;
+  constexpr int QKV = 4;
+  constexpr int NV = 4;
+  constexpr int QK_STRIDE = WL::QK_STRIDE;
+  extern __shared__ __align__(16) float smem[];
+  float* v_base = smem + STAGES * WL::STAGE_FLOATS;  // STAGES V slabs
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BLOCK_Q;  // heaviest first
+  const int col0 = slab0 + blockIdx.z * W;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const float* qg = q + static_cast<size_t>(bh) * t_q * d;
+  const float* kg = k + static_cast<size_t>(bh) * t_k * d;
+  const float* vg = v + static_cast<size_t>(bh) * t_k * d;
+  float* og = o + static_cast<size_t>(bh) * t_q * d;
+
+  int k_end = t_k;
+  if (causal) {
+    const int last_q = q_offset + min(q0 + BLOCK_Q, t_q) - 1;
+    k_end = min(t_k, last_q - k_offset + 1);
   }
-  // acc[NV * c + i][2 * row + e] is column 8 * NV * c + NV * (2t + e) + i
+  const int n_kt = k_end > 0 ? (k_end + BLOCK_K - 1) / BLOCK_K : 0;
+  const int n_c = (d + DEPTH - 1) / DEPTH;  // depth chunks
+  const int n_steps = n_kt * n_c;
+
+  auto stage_in = [&](int j) {
+    const int kt = j / n_c;
+    const int c = j % n_c;
+    float* st = smem + (j % STAGES) * WL::STAGE_FLOATS;
+    load_tile<DEPTH, BLOCK_Q, QK_STRIDE>(st, qg, q0, t_q, d, tid, c * DEPTH);
+    load_tile<DEPTH, BLOCK_K, QK_STRIDE>(st + WL::Q_FLOATS, kg, kt * BLOCK_K,
+                                         t_k, d, tid, c * DEPTH);
+    if (c == 0)
+      load_tile<W, BLOCK_K, WL::V_STRIDE>(v_base + (kt % STAGES) *
+                                                       WL::V_FLOATS,
+                                          vg, kt * BLOCK_K, t_k, d, tid,
+                                          col0);
+  };
+  if (n_steps > 0) stage_in(0);
+  cp_async_commit();
+
+  const int wq0 = q0 + 16 * warp;
+  const int w_rows = min(16, t_q - wq0);
+  const int r_lo = q_offset + wq0;
+  const int r_hi = r_lo + w_rows - 1;
+  const int pos0 = r_lo + g;
+  const int q_lane = (16 * warp + g) * QK_STRIDE + QKV * t;
+  const int k_lane = g * QK_STRIDE + QKV * t;
+
+  float acc[W / 8][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = g + 8 * r;
-    if (row >= w_rows) continue;
-    const float inv = 1.f / (l[r] > 0.f ? l[r] : 1.f);
-    float* dst = og + static_cast<size_t>(wq0 + row) * d;
+  for (int n = 0; n < W / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < D / (8 * NV); ++c)
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+  float s[SLICES][4];
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BLOCK_K;
+    const int kv = min(BLOCK_K, t_k - k0);
+    const int c_lo = k_offset + k0;
+    const int c_hi = c_lo + kv - 1;
+    const bool visible = w_rows > 0 && !(causal && r_hi < c_lo);
+    const bool full = kv == BLOCK_K && (!causal || r_lo >= c_hi);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        // NV columns from a multiple of NV: all below d or all past it
-        if (8 * NV * c + NV * (2 * t + e) >= d) continue;
-        float out[NV];
+    for (int j = 0; j < SLICES; ++j)
 #pragma unroll
-        for (int i = 0; i < NV; ++i) out[i] = acc[NV * c + i][2 * r + e] * inv;
-        float* d = dst + 8 * NV * c + NV * (2 * t + e);
-        if constexpr (NV == 4)
-          *reinterpret_cast<float4*>(d) =
-              make_float4(out[0], out[1], out[2], out[3]);
-        else if constexpr (NV == 2)
-          *reinterpret_cast<float2*>(d) = make_float2(out[0], out[1]);
-        else
-          *d = out[0];
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int c = 0; c < n_c; ++c) {
+      const int j = kt * n_c + c;
+      if (j + 1 < n_steps) stage_in(j + 1);  // in flight during this step
+      cp_async_commit();
+      cp_async_wait<1>();  // step j's chunks (and V slab) have landed
+      __syncthreads();
+      if (visible) {
+        // S accumulates over the chunks; a tail chunk's pairs past d are
+        // skipped
+        const float* st = smem + (j % STAGES) * WL::STAGE_FLOATS;
+        scores<DEPTH, QK_STRIDE, QKV, SLICES>(s, st + q_lane,
+                                              st + WL::Q_FLOATS + k_lane,
+                                              d - c * DEPTH);
+        if (c == n_c - 1)  // S is whole: every slab sees the same S
+          softmax_pv<W, SLICES, NV, WL::V_STRIDE>(
+              s, acc, m, l, full, scale_log2, k0, t_k, pos0, causal,
+              k_offset, t,
+              v_base + (kt % STAGES) * WL::V_FLOATS + 2 * t * WL::V_STRIDE +
+                  NV * g,
+              d - col0);
       }
+      __syncthreads();  // step j's stage is free for step j + 2
+    }
   }
+  cp_async_wait<0>();
+  store_rows<W, NV>(acc, l, og, wq0, g, t, w_rows, d, col0);
 }
 
 template <int D>
@@ -465,22 +668,60 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// n_slabs O slabs of width W from column slab0
+template <int W>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        int bh, int t_q, int t_k, int d, int slab0,
+                        int n_slabs, int q_offset, int k_offset, int causal,
+                        float scale, cudaStream_t stream) {
+  using WL = WideLayout<W>;
+  const size_t bytes = WL::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32x3_wide_kernel<W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (t_q + WL::BLOCK_Q - 1) / WL::BLOCK_Q, n_slabs);
+  flash_fwd_tf32x3_wide_kernel<W><<<grid, WL::THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), t_q, t_k, d,
+      slab0, q_offset, k_offset, causal, scale * LOG2E);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, o: [bh, t_q, d]; k, v: [bh, t_k, d]; all contiguous float32 (dtype 0)
-// with 16-byte aligned data, d a multiple of 8 from 8 to 256, any finite
-// scale. Launches on `stream` and returns the launch status
-// (cudaGetLastError); it does not synchronise.
+// with 16-byte aligned data, d a multiple of 8 (any size), any finite
+// scale. Launches on `stream` (two kernels for a d above 256 whose last
+// slab is narrower) and returns the launch status (cudaGetLastError); it
+// does not synchronise.
 extern "C" int v6t_flash_attention_fwd_tf32x3(const void* q, const void* k,
                                               const void* v, void* o,
                                               int dtype, int bh, int t_q,
                                               int t_k, int d, int q_offset,
                                               int k_offset, int causal,
                                               float scale, void* stream) {
-  if (dtype != 0 || bh <= 0 || t_q <= 0 || t_k < 0 || d < 8 || d > 256 ||
-      d % 8 != 0 || !std::isfinite(scale))
+  if (dtype != 0 || bh <= 0 || t_q <= 0 || t_k < 0 || d < 8 || d % 8 != 0 ||
+      !std::isfinite(scale))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > SLAB) {
+    // slabs of SLAB columns; a tail above 128 columns is one more of them,
+    // a narrower tail a second launch at the narrowest W >= the tail
+    const int full = d / SLAB;
+    const int tail = d % SLAB;
+    if (tail > 128)
+      return launch_wide<SLAB>(q, k, v, o, bh, t_q, t_k, d, 0, full + 1,
+                               q_offset, k_offset, causal, scale, s);
+    cudaError_t err = launch_wide<SLAB>(q, k, v, o, bh, t_q, t_k, d, 0, full,
+                                        q_offset, k_offset, causal, scale, s);
+    if (err != cudaSuccess || tail == 0) return err;
+    if (tail <= 64)
+      return launch_wide<64>(q, k, v, o, bh, t_q, t_k, d, full * SLAB, 1,
+                             q_offset, k_offset, causal, scale, s);
+    return launch_wide<128>(q, k, v, o, bh, t_q, t_k, d, full * SLAB, 1,
+                            q_offset, k_offset, causal, scale, s);
+  }
   // the narrowest instantiated width W >= d
   if (d <= 8)
     return launch<8>(q, k, v, o, bh, t_q, t_k, d, q_offset, k_offset, causal,

@@ -9,9 +9,11 @@ the device of the tensors decides. Two kernels serve CUDA tensors, both on
 the tensor cores, chosen by ``kernel_variant``:
 ``csrc/flash_attention_tc.cu`` (wgmma) for bf16 and
 ``csrc/flash_attention_tf32.cu`` (mma.sync in three TF32 passes, f32
-accuracy) for f32, each at every head dim from 1 to 256: the kernel is
+accuracy) for f32, each at every head dim: up to 256 the kernel is
 instantiated at a few widths and zero-fills its tiles from the true D up to
-the next one, and the wrapper zero-pads a D that is not a multiple of 8.
+the next one; above 256 it cuts O into column slabs of at most 256 and
+accumulates q.k over depth chunks (``KernelVariant.split``); the wrapper
+zero-pads a D that is not a multiple of 8.
 ``csrc/flash_attention.cu``, on the CUDA cores, is reachable by
 ``variant="cuda_core"`` only. The backward is ``_attention_bwd``, a plain
 blockwise recompute, as in the JAX package, where it is ``jnp`` and not a
@@ -33,8 +35,6 @@ from vantage6_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 M_FLOOR = -1e20
-# the widest head dim the kernels take (the Pallas kernel takes any D)
-MAX_HEAD_DIM = 256
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,7 +47,10 @@ class KernelVariant:
     dtypes it takes and the head dims it is instantiated for. A kernel
     that ``pads`` serves every head dim up to its widest: the one above
     it, zero-filled in its tiles, and the wrapper pads D to a multiple of 8.
-    ``wide_tiles`` holds the tiles of widths that differ from the rest."""
+    ``wide_tiles`` holds the tiles of widths that differ from the rest.
+    A kernel with a ``depth`` serves every head dim above its widest too:
+    O in column slabs of at most the widest, q.k summed over depth chunks
+    of ``depth`` columns, on ``slab_tiles`` (see ``split``)."""
 
     library: str
     symbol: str
@@ -57,17 +60,39 @@ class KernelVariant:
     head_dims: tuple
     pads: bool = False
     wide_tiles: tuple = ()  # ((head dim, block_q, block_k), ...)
+    depth: int = 0  # depth chunk above the widest head dim; 0: none
+    slab_tiles: tuple = ()  # (block_q, block_k) above the widest
 
     def width(self, d: int) -> int | None:
-        """The instantiated head dim that serves head dim ``d``, or None."""
+        """The instantiated head dim that serves head dim ``d`` (above the
+        widest, the width of the full O slabs), or None."""
         if d in self.head_dims:
             return d
         if not self.pads or d < 1:
             return None
+        if self.depth and d > self.head_dims[-1]:
+            return self.head_dims[-1]
         return next((w for w in self.head_dims if w >= d), None)
+
+    def split(self, d: int) -> tuple[tuple[int, ...], int] | None:
+        """Above the widest head dim, what a call at head dim ``d`` runs:
+        (the widths of its O slabs, its depth chunks), as the C entry
+        point launches them; None at or below it. Full slabs are the
+        widest; a tail of at most 128 columns runs at 64 or 128, a wider
+        one as one more full slab."""
+        slab = self.head_dims[-1]
+        if not self.depth or d <= slab:
+            return None
+        d += -d % 8
+        full, tail = divmod(d, slab)
+        tails = (() if not tail else (slab,) if tail > 128
+                 else (64,) if tail <= 64 else (128,))
+        return (slab,) * full + tails, -(-d // self.depth)
 
     def blocks(self, d: int) -> tuple[int, int]:
         """(block_q, block_k) of the kernel at head dim ``d``."""
+        if self.split(d):
+            return self.slab_tiles
         w = self.width(d)
         for width, block_q, block_k in self.wide_tiles:
             if width == w:
@@ -80,13 +105,15 @@ KERNELS = {
     "tensor_core": KernelVariant(
         "flash_attention_tc", "v6t_flash_attention_fwd_tc", 128, 64,
         (torch.bfloat16,), (16, 32, 64, 128, 256), pads=True,
+        depth=128, slab_tiles=(128, 64),
     ),
     # mma.sync m16n8k8 in three TF32 passes, cp.async K/V ring
-    # (csrc/flash_attention_tf32.cu); 16-key tiles at 256
+    # (csrc/flash_attention_tf32.cu); 16-key tiles at 256, 32-key tiles
+    # above it
     "tf32x3": KernelVariant(
         "flash_attention_tf32", "v6t_flash_attention_fwd_tf32x3", 128, 64,
         (torch.float32,), (8, 16, 32, 64, 128, 256), pads=True,
-        wide_tiles=((256, 128, 16),),
+        wide_tiles=((256, 128, 16),), depth=64, slab_tiles=(128, 32),
     ),
     # f32 FMA on the CUDA cores (csrc/flash_attention.cu)
     "cuda_core": KernelVariant(
@@ -103,7 +130,8 @@ def kernel_variant(dtype: torch.dtype, d: int) -> str:
     """The kernel that serves a CUDA call: bf16 goes to wgmma, f32 to the
     tensor cores in three TF32 passes (one pass would miss the reference's
     2e-5), at every head dim. bf16 at D = 8, below wgmma's k16 depth, runs
-    the D = 16 instantiation on zero-filled columns."""
+    the D = 16 instantiation on zero-filled columns; above 256 both run
+    their slab kernels (``KernelVariant.split``)."""
     if dtype not in _DISPATCH:
         raise ValueError(f"unsupported dtype {dtype} (float32, bfloat16)")
     return _DISPATCH[dtype]
@@ -118,14 +146,10 @@ def _check_supported(dtype: torch.dtype, d: int, scale: float,
         raise ValueError(f"unsupported dtype {dtype} (float32, bfloat16)")
     if not math.isfinite(scale):
         raise ValueError(f"scale must be finite, not {scale}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(
-            f"head dim {d} > {MAX_HEAD_DIM}: no kernel is instantiated that "
-            "wide (the Pallas kernel takes any D; ROADMAP queue 3, head "
-            "dims above 256)")
     spec = KERNELS[variant]
     if dtype not in spec.dtypes or spec.width(d) is None:
-        takes = (f"head dims 1-{spec.head_dims[-1]}" if spec.pads
+        takes = ("every head dim" if spec.depth
+                 else f"head dims 1-{spec.head_dims[-1]}" if spec.pads
                  else f"head dims {spec.head_dims}")
         raise ValueError(f"the {variant} kernel takes {spec.dtypes} at "
                          f"{takes}, not {dtype} at {d}")
