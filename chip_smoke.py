@@ -206,12 +206,31 @@ Phases, each of which raises (exit code 1) on failure:
    against the dense MLP at phase 9's shapes, errors and ms; three
    compressed FedAvg rounds (phase 7's compressor, station 1 masked in
    the second) and ``secure_sum`` of ``[32, 421642]`` values on the group
-   mesh, each bit for bit the plain mesh's, timed in turns. The group is
+   mesh, each bit for bit the plain mesh's, timed in turns. (f) ROADMAP
+   item 12.1: 8 fused flagship rounds on the group mesh (one CUDA graph
+   with the NCCL collectives captured in it) bit for bit 8 eager rounds
+   on the group and the one-card ``run_rounds``, a traced replay (one
+   graph launch, no NCCL call on the host, the device's kernels), ms a
+   fused round beside the one-card fused round's. (g) Item 12.4: phase
+   4's full width (bf16, flash, FULL's 4 stations) for 2 rounds through
+   ``make_engine(..., group=)`` bit for bit the one-card engine, its
+   ``tensor_core`` launches, ms a round and peak memory. The group is
    destroyed; then two gloo ranks on the card run the device engine's
    tasks, three compressed rounds of 8 flagship stations (4 a rank, each
    station's local steps on their own) and the same ``secure_sum`` (16
    stations a rank), each bit for bit the one-process form (sha256 of the
-   bytes). No flash kernel may launch.
+   bytes); (f) 4 fused rounds of 8 flagship stations captured in segments
+   cut at each collective, bit for bit 4 eager rounds over the same
+   group; (g) the transformer rounds over both ranks, 2 stations a rank,
+   the losses and params within ``DIST_TRANSFORMER``'s tolerances of the
+   one-card run, each rank's ``tensor_core`` launches, ms and peak; (h)
+   item 12.5: a ``Federation`` over both ranks (16 of 32 stations a rank)
+   runs one device-mode ``central_fedavg`` round of the flagship,
+   ``central_average`` and the seeded secure average over 4,096 ages a
+   station, every rank's task records equal to the one-process
+   Federation's (rank 0 runs it too), each host run executed once, on its
+   station's rank, and ms a task of both. Only (g)'s rounds may launch a
+   flash kernel.
 
 14. the ops plane around FedAvg, after a line saying whether ``requests``
    and ``cryptography`` import here. (a) The reference benchmark's
@@ -307,13 +326,17 @@ Phases, each of which raises (exit code 1) on failure:
    of both, and the REST wall split into its hops from the runs' server
    stamps (the central's claim, the subtasks' creation, each subtask's
    claim and its run, that is its CSV load and partial, the central's
-   wait after the last partial, the researcher's wake-up). (d) One
+   wait after the last partial, the researcher's wake-up), after the
+   server's own split over the daemons' start and over the fan-out: the
+   time its handlers spend in ``health_block``, in ``sources`` outside it,
+   in the telemetry push's inserts and prunes, and waiting for and
+   holding the database lock, with the statements that held it. (d) One
    ``partial_average`` through a sandbox-mode daemon: a
    child process with the card hidden and ``jax`` shadowed by a package
    that records any import; the child's wall ms. (e) ``/api/health`` ok,
    ``/api/metrics`` with the server's series and ``v6t_device_*``, and
    each daemon of (b)-(d) read back from ``/api/fleet`` (each pushes every
-   0.5 s). No flash kernel may launch.
+   5 s). No flash kernel may launch.
 
 17. the CLI on the card (``click`` and PyYAML required; without either
    one line says it was not run), each command a child process that sees
@@ -3478,6 +3501,387 @@ def _engine_checks(stations, stats, fits):
 
 AGG_MODES = ("replicated", "scattered", "scattered_bf16")
 
+# phase 13 (f): the fused flagship round across ranks (ROADMAP item 12.1):
+# 8 rounds of phase 6's flagship (32 stations) at NCCL world size one, and
+# 4 rounds of 8 of its stations (4 a rank) on the two gloo ranks, where the
+# round is captured in segments cut at each collective
+DIST_FUSED = dict(rounds=8, key=3, gloo_stations=8, gloo_rounds=4)
+# phase 13 (g): the transformer engine over ranks (item 12.4) at phase 4's
+# full width, bf16, flash attention, 2 rounds of FULL's 4 stations, all on
+# the NCCL rank or 2 a gloo rank. Over the gloo ranks the stations'
+# gradients are each station's own, bit for bit, and only their sum runs
+# in another order (two partial sums all-reduced): the losses within the
+# CPU parity tests' rtol, and Adam's params within their lr / 1000
+# (tests/test_torch_fed_transformer.py)
+DIST_TRANSFORMER = dict(rounds=2, loss_rtol=1e-5, param_atol=1e-3 / 1000)
+# phase 13 (h): a Federation over the two gloo ranks (item 12.5), 16 of 32
+# stations a rank: one device-mode central_fedavg round of the flagship,
+# central_average and the seeded secure average over 4,096 ages a
+# station. The device steps run batched, as users run them: a rank vmaps
+# its 16 stations where one process vmaps 32, and a batched kernel's bits
+# can depend on that count, and the flagship trains in bf16 compute (phase
+# 6), where a changed rounding grows over the local steps: on the card a
+# station's delta moved by up to 10.5% in norm between one process's
+# batched and looped steps, the batching phase 6 holds in its vmap ==
+# loop gate. So the device rows and what derives from them (each
+# station's delta, loss and count, the central's losses and model move)
+# are held no further from the one-process batched rows than twice what
+# batching alone moves them in the same run (_federation_spread), the
+# host records bit for bit; a second pass runs each station's step on
+# its own in both forms (_looped_mesh) and holds every record bit for bit
+DIST_FEDERATION = dict(stations=32, rows=4096, seed=21, fedavg_rounds=1,
+                       secure_seed="00" * 31 + "2a", spread_factor=2.0)
+
+
+def _fused_and_eager(torch, eng, params, sx, sy, counts, key, k):
+    """``k`` fused rounds and ``k`` eager rounds of one key on ``eng``:
+    (fused (params, losses, stats), eager (params, losses, stats))."""
+    fused = eng.run_rounds(params, sx, sy, counts, key, k)
+    p, o = params, eng.init(params)
+    gen = torch.Generator(device=eng.device).manual_seed(key)
+    losses, stats = [], []
+    for _ in range(k):
+        p, o, loss, st = eng.round(p, o, sx, sy, counts, key=gen)
+        losses.append(loss)
+        stats.append(st)
+    eager = (p, torch.stack(losses),
+             {n: torch.stack([s[n] for s in stats]) for n in stats[0]})
+    return (fused[0], fused[2], fused[3]), eager
+
+
+def _run_digests(run):
+    """Digests of a run's (params, losses, stats)."""
+    params, losses, stats = run
+    return dict(params=_digest(_leaves(params)), losses=_digest([losses]),
+                **{f"stats.{k}": _digest([v]) for k, v in stats.items()})
+
+
+def _replay_trace(torch, fused):
+    """One replay of a captured fused round under the profiler: the host
+    events (name -> count) and the device kernels (name -> count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fused._replay()
+        torch.cuda.synchronize()
+    host, device = {}, {}
+    for ev in prof.key_averages():
+        side = (device if ev.device_type == torch.autograd.DeviceType.CUDA
+                else host)
+        side[ev.key] = side.get(ev.key, 0) + ev.count
+    return host, device
+
+
+def _dist_fused(torch, dev, gmesh, plain, backend, sx, sy, counts):
+    """Phase 13 (f) on the group of one rank: the fused flagship rounds
+    against eager rounds on the group and the one-card fused run, bit for
+    bit; a traced replay; ms a fused round in turns (one card, group,
+    group, one card)."""
+    from vantage6_tpu_torch.fed.fedavg import capture_form
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    c, f = DIST_FUSED, FEDAVG
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        engines = {m: W.make_engine(m, local_steps=f["local_steps"],
+                                    batch_size=f["batch"], local_lr=f["lr"])
+                   for m in (plain, gmesh)}
+        params0 = W.init_params(1, device=dev)
+        group_fused, group_eager = _fused_and_eager(
+            torch, engines[gmesh], params0, sx, sy, counts, c["key"],
+            c["rounds"])
+        one_fused = engines[plain].run_rounds(params0, sx, sy, counts,
+                                              c["key"], c["rounds"])
+        got = _run_digests(group_fused)
+        vs_eager = _digests_differ([got], [_run_digests(group_eager)])
+        vs_one = _digests_differ([got], [_run_digests(
+            (one_fused[0], one_fused[2], one_fused[3]))])
+        check(not vs_eager, f"{c['rounds']} fused rounds on the {backend} "
+                            f"group differ from eager rounds at {vs_eager}")
+        check(not vs_one, f"the fused rounds on the {backend} group differ "
+                          f"from the one-card run_rounds at {vs_one}")
+        losses = [float(x) for x in group_fused[1]]
+        fused = list(engines[gmesh]._fused.values())[-1]
+        form = capture_form(dev, gmesh.group)
+        host, device = {}, {}
+        if dev.type == "cuda":  # (the phase is rehearsed on the CPU too)
+            host, device = _replay_trace(torch, fused)
+            nccl_host = {k: v for k, v in host.items()
+                         if "nccl" in k.lower() or "c10d" in k.lower()}
+            launches = host.get("cudaGraphLaunch", 0)
+            check(form == "graph" and fused.graph is not None
+                  and launches == 1 and not nccl_host,
+                  f"a traced replay is not one graph launch ({form}: host "
+                  f"{host})")
+        ms = {"one_card": [], backend: []}
+        for which in ("one_card", backend, backend, "one_card"):
+            eng = engines[plain if which == "one_card" else gmesh]
+            ms[which].append(median_ms(
+                torch, lambda eng=eng: eng.run_rounds(
+                    params0, sx, sy, counts, c["key"], c["rounds"]),
+                runs=1, warmup=0, per=c["rounds"])[0])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    res = dict(rounds=c["rounds"], form=form, bit_identical_eager=True,
+               bit_identical_one_card=True, losses=losses,
+               capture=engines[gmesh].last_capture,
+               replay_host_events=host, replay_kernels=device,
+               ms_per_round={k: sorted(v)[0] for k, v in ms.items()},
+               runs_ms=ms)
+    print(f"fused flagship rounds on the {backend} group of 1 rank "
+          f"({form} form): {c['rounds']} captured rounds == {c['rounds']} "
+          f"eager rounds on the group and == the one-card run_rounds bit for"
+          f" bit (params, losses, stats; losses {losses})")
+    print(f"a traced replay on the {backend} group: host {host} (no NCCL "
+          f"call on the host: the collectives replay inside the graph); "
+          f"device kernels {device}")
+    print(f"fused round ms on the {backend} group "
+          f"{res['ms_per_round'][backend]:.3f} vs one card "
+          f"{res['ms_per_round']['one_card']:.3f} (best of 2 turns of "
+          f"{c['rounds']} rounds); capture {res['capture']}")
+    return res
+
+
+def _transformer_engine(ft, torch, dev, group=None):
+    """Phase 13 (g)'s engine (phase 4's full width, bf16, flash, FULL's 4
+    stations) on the card, over ``group`` if given; its tokens (the rank's
+    block) and the initial state."""
+    shape = FULL
+    cfg = ft.TransformerConfig(
+        vocab=shape["vocab"], d_model=shape["d_model"],
+        n_heads=shape["n_heads"], n_layers=shape["n_layers"],
+        max_len=shape["seq"], dtype=torch.bfloat16, attention="flash")
+    eng = ft.make_engine(shape["stations"], 1, cfg, lr=1e-3, device=dev,
+                         group=group)
+    tokens = eng.shard_tokens(ft.make_federated_tokens(
+        shape["stations"], batch=shape["batch"], seq_len=shape["seq"],
+        vocab=shape["vocab"]))
+    params, opt = eng.init(torch.Generator().manual_seed(0))
+    return eng, tokens, params, opt
+
+
+def _transformer_rounds(fa, torch, eng, tokens, params, opt):
+    """DIST_TRANSFORMER's rounds from (params, opt): (params, losses, ms a
+    round, peak GB, the flash launches of the rounds)."""
+    mask = torch.ones(FULL["stations"])
+    card = eng.device.type == "cuda"
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    losses, ms = [], []
+    for _ in range(DIST_TRANSFORMER["rounds"]):
+        t0 = time.perf_counter()
+        params, opt, loss = eng.round(params, opt, tokens, mask)
+        losses.append(loss.item())
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(fa.flash_forward_cuda.variant_launches)
+    return (params, losses, ms,
+            torch.cuda.max_memory_allocated() / 1e9 if card else None,
+            launches)
+
+
+def _dist_transformer(fa, ft, torch, dev, group, backend, out_path):
+    """Phase 13 (g) on the group of one rank: the full-width bf16 flash
+    rounds over the group against the one-card engine, bit for bit; the
+    one-card params and losses are written to ``out_path`` for the gloo
+    ranks."""
+    runs = {}
+    for which, grp in (("one_card", None), (backend, group)):
+        eng, tokens, params, opt = _transformer_engine(ft, torch, dev, grp)
+        runs[which] = _transformer_rounds(fa, torch, eng, tokens, params,
+                                          opt)
+        del eng, tokens, params, opt
+    (p1, l1, ms1, peak1, n1), (pg, lg, msg, peakg, ng) = (
+        runs["one_card"], runs[backend])
+    same = l1 == lg and all(torch.equal(a, b) for a, b in zip(
+        _leaves(p1), _leaves(pg), strict=True))
+    check(same, f"the transformer rounds on the {backend} group differ from"
+                f" the one-card engine's (losses {lg} vs {l1})")
+    expect = (DIST_TRANSFORMER["rounds"] * FULL["stations"]
+              * FULL["n_layers"] if dev.type == "cuda" else 0)
+    check(ng.get("tensor_core", 0) == expect == sum(ng.values()),
+          f"the {backend} transformer rounds launched {ng}, not {expect} "
+          "tensor_core kernels")
+    torch.save({"params": [x.cpu() for x in _leaves(p1)], "losses": l1},
+               out_path)
+    res = dict(bit_identical=True, losses=lg, round_ms=msg,
+               one_card_round_ms=ms1, peak_mem_gb=peakg,
+               one_card_peak_mem_gb=peak1, launches=ng,
+               one_card_launches=n1)
+    print(f"transformer engine (phase 4's width, bf16, flash, "
+          f"{FULL['stations']} stations) over the {backend} group of 1 rank"
+          f" == the one-card engine bit for bit over "
+          f"{DIST_TRANSFORMER['rounds']} rounds (losses {lg}); ms/round "
+          f"{[round(x, 1) for x in msg]} vs one card "
+          f"{[round(x, 1) for x in ms1]}; peak {peakg} GB vs {peak1} GB; "
+          f"launches {ng}")
+    return res
+
+
+def _federation_tables(n_stations):
+    """Phase 13 (h)'s ages: one DataFrame of DIST_FEDERATION's rows a
+    station, N(50, 10) rounded to 0.1."""
+    import pandas as pd
+
+    c = DIST_FEDERATION
+    rng = np.random.default_rng(c["seed"])
+    return [pd.DataFrame({"age": rng.normal(50.0, 10.0, c["rows"]).round(1)})
+            for _ in range(n_stations)]
+
+
+def _federation_program(torch, fed, images, tables):
+    """Phase 13 (h)'s task program on ``fed``: (records, ms a task). A
+    record holds a task's name, method, parent (its place), statuses,
+    stations, whether it or a subtask has device rows, its runs' results
+    and its device rows, as the Federation holds them. Every rank runs
+    it, as the one-process form."""
+    from vantage6_tpu_torch.workloads import fedavg_mnist as W
+
+    c, f = DIST_FEDERATION, FEDAVG
+    tasks = (
+        ("fedavg", "central_fedavg", dict(
+            n_rounds=c["fedavg_rounds"], local_steps=f["local_steps"],
+            batch_size=f["batch"], lr=f["lr"], seed=3), images),  # the
+        # seed of the init that the central's record subtracts
+        ("avg", "central_average", {"column": "age"}, tables),
+        ("sec", "central_secure_average", {"column": "age",
+                                           "seed_hex": c["secure_seed"]},
+         tables),
+    )
+    ms = {}
+    for image, method, kwargs, data in tasks:
+        fed.set_datasets("default", data)
+        t0 = time.perf_counter()
+        task = fed.create_task(image, {"method": method, "kwargs": kwargs},
+                               organizations=[0])
+        fed.wait_for_results(task.id)
+        if fed.mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        ms[method] = 1e3 * (time.perf_counter() - t0)
+    ids = sorted(fed.tasks)
+    records = []
+    for i in ids:
+        task = fed.tasks[i]
+        results = [r.result for r in task.runs]
+        if task.method == "partial_secure_average":
+            # the upload's masks come from the central's fresh tag
+            results = [r["party_index"] for r in results]
+        elif task.method == "central_fedavg":  # its model's move
+            init = _leaves(W.init_params(3, device=fed.mesh.device))
+            results = [dict(losses=r["losses"], move=[
+                p - p0 for p, p0 in zip(_leaves(r["params"]), init,
+                                        strict=True)]) for r in results]
+        records.append(dict(
+            name=task.name, method=task.method,
+            parent=None if task.parent_id is None
+            else ids.index(task.parent_id),
+            device=task.stacked_result is not None,
+            statuses=[r.status.value for r in task.runs],
+            stations=[r.station_index for r in task.runs],
+            results=results, stacked=task.stacked_result))
+    for r in reversed(records):  # a subtask follows its parent
+        if r["device"] and r["parent"] is not None:
+            records[r["parent"]]["device"] = True
+    return records, ms
+
+
+def _bits(x):
+    """``x`` as a string that is equal only for equal bits (tensors by
+    their digest, floats by their repr)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return f"tensor({x.dtype}, {list(x.shape)}, {_digest([x])})"
+    if isinstance(x, dict):
+        return "{" + ", ".join(f"{k!r}: {_bits(v)}"
+                               for k, v in sorted(x.items())) + "}"
+    if isinstance(x, (list, tuple)):
+        return "[" + ", ".join(_bits(v) for v in x) + "]"
+    return repr(x)
+
+
+def _federation_bits(records):
+    """Each record with its results and device rows as ``_bits``."""
+    return [{k: _bits(v) if k in ("results", "stacked") else v
+             for k, v in r.items()} for r in records]
+
+
+def _federation_spread(a, b):
+    """How far record ``a``'s run results lie from record ``b``'s: the
+    largest, over the runs and over each result's fields (a station's
+    delta, loss and count; the central's losses and model move), of
+    ``|a - b| / |b|`` in the 2-norm of the field's numbers. A structure
+    that differs raises."""
+    import torch
+
+    def numbers(x):
+        if isinstance(x, torch.Tensor):
+            return [x.detach().double().reshape(-1).cpu()]
+        if isinstance(x, (int, float)):
+            return [torch.tensor([float(x)], dtype=torch.float64)]
+        if isinstance(x, dict):
+            return [t for k in sorted(x) for t in numbers(x[k])]
+        if isinstance(x, (list, tuple)):
+            return [t for v in x for t in numbers(v)]
+        return []
+
+    worst = 0.0
+    for ra, rb in zip(a["results"], b["results"], strict=True):
+        fields = (sorted(rb) if isinstance(rb, dict) else [None])
+        for k in fields:
+            xa, xb = numbers(ra if k is None else ra[k]), numbers(
+                rb if k is None else rb[k])
+            if len(xa) != len(xb) or any(u.shape != v.shape
+                                         for u, v in zip(xa, xb)):
+                raise ValueError(f"{b['method']}: {k} differs in shape")
+            if not xb:
+                continue
+            u, v = torch.cat(xa), torch.cat(xb)
+            num, den = (u - v).norm().item(), v.norm().item()
+            worst = max(worst, num / den if den else
+                        (0.0 if num == 0 else float("inf")))
+    return worst
+
+
+def _federation_errors(got, want, loop):
+    """``got``'s records against ``want``'s (the one-process batched
+    form), with ``loop`` (the one-process looped form) measuring what
+    batching alone moves: the records without device rows bit for bit
+    (the places that differ, with any record whose fields or structure
+    differ); each record with device rows, or with a subtask that has
+    them, no further from ``want``'s (``_federation_spread``) than
+    DIST_FEDERATION's ``spread_factor`` times ``loop``'s is. Returns the
+    places, each device record's spread and its bound."""
+    c = DIST_FEDERATION
+    differ, spreads = [], []
+    for i, (a, b, l) in enumerate(zip(got, want, loop, strict=True)):
+        if not a["device"]:
+            if _federation_bits([a]) != _federation_bits([b]):
+                differ.append(i)
+            continue
+        rest = [{k: v for k, v in r.items() if k not in ("results",
+                                                          "stacked")}
+                for r in (a, b)]
+        if rest[0] != rest[1] or (
+                type(a["stacked"]) is not type(b["stacked"])):
+            differ.append(i)
+            continue
+        try:
+            got_s, loop_s = _federation_spread(a, b), _federation_spread(l, b)
+        except ValueError:
+            differ.append(i)
+            continue
+        spreads.append(dict(record=i, method=b["method"], spread=got_s,
+                            bound=c["spread_factor"] * loop_s,
+                            batching=loop_s))
+    return dict(differ=differ, spreads=spreads)
+
+
 # one rank of phase 13's two-rank gloo run on the card: joins the group
 # with torch.distributed itself (initialize() picks NCCL for a card) and
 # runs the device engine's tasks on its own station only
@@ -3485,8 +3889,9 @@ _GLOO_RANK = """
 import json, sys, time
 import torch
 import torch.distributed as dist
-rank, world, init, here, device = (int(sys.argv[1]), int(sys.argv[2]),
-                                   sys.argv[3], sys.argv[4], sys.argv[5])
+rank, world, init, here, device, reference = (
+    int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+    sys.argv[5], sys.argv[7])
 sys.path.insert(0, here)
 import chip_smoke as cs
 for name, sizes in json.loads(sys.argv[6]).items():  # the parent's sizes
@@ -3529,8 +3934,110 @@ total = C.secure_sum(vals, c["secure_key"], c["secure_scale"], mask=mask,
                      mesh=smesh)
 out["secure_sum"] = dict(digest=cs._digest([total]),
                          s=time.perf_counter() - t0)
+# (f) the fused flagship rounds over the two ranks, captured in segments
+from vantage6_tpu_torch.fed.fedavg import capture_form
+from vantage6_tpu_torch.workloads import fedavg_mnist as W
+fc, f = cs.DIST_FUSED, cs.FEDAVG
+n_s = fc["gloo_stations"]
+fmesh = FederationMesh(n_s, device=device, group=dist.group.WORLD)
+rows = slice(fmesh.local_stations.start, fmesh.local_stations.stop)
+sx, sy, counts = cs._flagship_data(torch, device, n_s)
+eng = W.make_engine(fmesh, local_steps=f["local_steps"],
+                    batch_size=f["batch"], local_lr=f["lr"])
+params0 = W.init_params(1, device=device)
+fused, eager = cs._fused_and_eager(torch, eng, params0, sx[rows], sy[rows],
+                                   counts, fc["key"], fc["gloo_rounds"])
+def eager_rounds():
+    p, o = params0, eng.init(params0)
+    gen = torch.Generator(device=device).manual_seed(fc["key"])
+    for _ in range(fc["gloo_rounds"]):
+        p, o = eng.round(p, o, sx[rows], sy[rows], counts, key=gen)[:2]
+def sync():
+    if device == "cuda":
+        torch.cuda.synchronize()
+ms = {}
+for name, fn in (("fused", lambda: eng.run_rounds(
+        params0, sx[rows], sy[rows], counts, fc["key"], fc["gloo_rounds"])),
+                 ("eager", eager_rounds)):
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    ms[name] = 1e3 * (time.perf_counter() - t0) / fc["gloo_rounds"]
+fr = list(eng._fused.values())[-1]
+out["fused"] = dict(form=capture_form(torch.device(device),
+                                      dist.group.WORLD),
+                    segments=len(fr.segments), cuts=len(fr.cuts),
+                    fused=cs._run_digests(fused), eager=cs._run_digests(eager),
+                    ms_per_round=ms, capture=eng.last_capture,
+                    stations=list(fmesh.local_stations))
+del eng, fused, eager, fr
+# (g) the transformer engine over the two ranks, 2 stations a rank
+from vantage6_tpu_torch.ops import flash_attention as fa
+from vantage6_tpu_torch.workloads import fed_transformer as ft
+teng, tokens, params, opt = cs._transformer_engine(ft, torch, device,
+                                                   dist.group.WORLD)
+params, losses, tms, peak, launches = cs._transformer_rounds(
+    fa, torch, teng, tokens, params, opt)
+ref = torch.load(reference, weights_only=True)
+out["transformer"] = dict(
+    losses=losses, ref_losses=ref["losses"], round_ms=tms, peak_mem_gb=peak,
+    launches=launches, stations=list(teng.mesh.local_stations),
+    tokens=list(tokens.shape),
+    param_max_abs_err=max((a.float().cpu() - b).abs().max().item()
+                          for a, b in zip(cs._leaves(params), ref["params"],
+                                          strict=True)))
+del teng, tokens, params, opt, ref
+if device == "cuda":
+    torch.cuda.empty_cache()
+# (h) a Federation over the two ranks; rank 0 also runs the one-process
+# one. The batched device steps first, as users run them, then each
+# station's step on its own (_looped_mesh), every form on both ranks
+from vantage6_tpu_torch.runtime.federation import (
+    Federation, federation_from_datasets)
+from vantage6_tpu_torch.workloads import average, secure_average
+executed = []
+_execute = Federation._execute_host
+def counting(self, task, fn, run, trace_parent=None):
+    if self.mesh.group is not None:
+        executed.append((task.method, run.station_index))
+    return _execute(self, task, fn, run, trace_parent)
+Federation._execute_host = counting
+_fed_map = FederationMesh.fed_map
+def looped(self, fn, *args, replicated_args=(), batched=False):
+    return _fed_map(self, fn, *args, replicated_args=replicated_args)
+hc = cs.DIST_FEDERATION
+sx, sy, counts = cs._flagship_data(torch, device, hc["stations"])
+images = [{"x": sx[i], "y": sy[i], "count": counts[i],
+           "sid": torch.tensor(i, dtype=torch.int32, device=device)}
+          for i in range(hc["stations"])]
+tables = cs._federation_tables(hc["stations"])
+algos = {"fedavg": W, "avg": average, "sec": secure_average}
+out["federation"], kept = {}, {}
+forms = ["ranks", "ranks-looped"] + (["one", "one-looped"] if rank == 0
+                                     else [])
+for form in forms:
+    kw = {"group": dist.group.WORLD} if form.startswith("ranks") else {}
+    executed.clear()
+    FederationMesh.fed_map = looped if form.endswith("looped") else _fed_map
+    fed = federation_from_datasets(images, algos, device=device,
+                                   executor_workers=8, **kw)
+    try:
+        records, ms = cs._federation_program(torch, fed, images, tables)
+    finally:
+        fed.close()
+        FederationMesh.fed_map = _fed_map
+    out["federation"][form] = dict(bits=cs._federation_bits(records), ms=ms,
+                                   executed=list(executed))
+    if form in ("ranks", "one", "one-looped"):
+        kept[form] = records
+    del fed, records
+if rank == 0:
+    out["federation"]["errors"] = cs._federation_errors(
+        kept["ranks"], kept["one"], kept["one-looped"])
+del kept
 dist.destroy_process_group()
-print(json.dumps(out))
+print(json.dumps(out, default=str))
 """
 
 
@@ -3624,23 +4131,30 @@ def _gloo_compressed_reference(torch, dev):
             for r in range(2)]
 
 
-def _gloo_two_ranks(dev, timeout=300):
-    """Phase 13's device-engine tasks over two gloo ranks on ``dev`` (both
-    on the one card): each rank a child process with its own station.
-    Returns (each rank's results, wall seconds); a rank that fails or
-    outlives ``timeout`` fails the phase, and every child is stopped."""
+def _gloo_two_ranks(dev, reference, timeout=420):
+    """Phase 13's arms over two gloo ranks on ``dev`` (both on the one
+    card), each rank a child process: the device-engine tasks on its own
+    station, the compressed rounds and the secure sum, and (f)-(h), the
+    transformer's held to the one-card run at ``reference``. Returns (each
+    rank's results, wall seconds); a rank that fails or outlives
+    ``timeout`` fails the phase, and every child is stopped."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{tmp}/rendezvous"
         t0 = time.perf_counter()
+        # (h)'s secure average masks with the numpy form of the native
+        # masks: phase 15 builds and holds the library itself
+        env = dict(os.environ, V6T_DISABLE_NATIVE="1")
         procs = [subprocess.Popen(
             [sys.executable, "-c", _GLOO_RANK, str(r), "2", init, HERE,
              dev.type, json.dumps(dict(
                  DISTRIBUTED=DISTRIBUTED, FEDAVG=FEDAVG,
-                 DIST_COMPRESSED=DIST_COMPRESSED))],
+                 DIST_COMPRESSED=DIST_COMPRESSED, DIST_FUSED=DIST_FUSED,
+                 DIST_TRANSFORMER=DIST_TRANSFORMER, FULL=FULL,
+                 DIST_FEDERATION=DIST_FEDERATION)), reference],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for r in range(2)]
+            text=True, env=env) for r in range(2)]
         try:
             outs = [p.communicate(timeout=timeout) for p in procs]
         finally:
@@ -3670,8 +4184,15 @@ def phase_distributed(fa, torch, dev):
     from vantage6_tpu_torch.workloads import device_engine as DE
     from vantage6_tpu_torch.workloads import fedavg_mnist as W
 
+    import shutil
+    import tempfile
+
+    from vantage6_tpu_torch.workloads import fed_transformer as ft
+
     cfg, fcfg = DISTRIBUTED, FEDAVG
     res = {}
+    tmp = tempfile.mkdtemp(prefix="v6t-phase13-")
+    reference = os.path.join(tmp, "transformer.pt")  # (g)'s one-card run
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -3796,6 +4317,8 @@ def phase_distributed(fa, torch, dev):
         del outs, a, b, eng_plain, eng_group
         res["compressed"] = _dist_compressed(torch, dev, gmesh, plain,
                                              backend, sx, sy, counts)
+        res["fused"] = _dist_fused(torch, dev, gmesh, plain, backend, sx, sy,
+                                   counts)
         del sx, sy
 
         # --------------------------------------- the device engine's tasks
@@ -3873,15 +4396,25 @@ def phase_distributed(fa, torch, dev):
         print(f"per-rank ring_attention [{b_},{t},{h},{d}] f32 causal at "
               f"P = 1 vs ring_attention_sharded: {ring}")
         print(f"tp_mlp over the {backend} group at P = 1 vs dense: {tp}")
+        before = dict(fa.flash_forward_cuda.variant_launches)
+        check(sum(before.values()) == 0,
+              f"phase 13 launched a flash kernel before (g): {before}")
+        # (g) the transformer engine over the group, phase 4's width
+        res["transformer"] = _dist_transformer(
+            fa, ft, torch, dev, gmesh.group, backend, reference)
     finally:
         D.shutdown()
         for key in env:
             os.environ.pop(key, None)
     check(not D.is_initialized(), "the process group outlived phase 13")
+    launches = dict(fa.flash_forward_cuda.variant_launches)
 
     # two gloo ranks on the one card (gloo takes CUDA tensors for the
     # collectives these tasks use; NCCL cannot put two ranks on one card)
-    outs, wall = _gloo_two_ranks(dev)
+    try:
+        outs, wall = _gloo_two_ranks(dev, reference)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     ref = _gloo_compressed_reference(torch, dev)
     n_s = DIST_COMPRESSED["gloo_stations"]
     for r, o in enumerate(outs):
@@ -3922,10 +4455,139 @@ def phase_distributed(fa, torch, dev):
                                  stats=outs[0]["stats"])
     print(f"device engine over two gloo ranks on {dev}: {errors}; "
           f"{wall:.1f} s for both processes")
-    launches = dict(fa.flash_forward_cuda.variant_launches)
-    check(sum(launches.values()) == 0,
-          f"phase 13 launched a flash kernel: {launches}")
+    res["gloo_fused"] = _gloo_fused_checks(outs, dev)
+    res["gloo_transformer"] = _gloo_transformer_checks(outs, dev)
+    res["gloo_federation"] = _gloo_federation_checks(outs, dev)
+    # this process's flash launches: (g)'s run over the group alone
+    check(launches == res["transformer"]["launches"],
+          f"phase 13 launched {launches} besides (g)'s rounds "
+          f"{res['transformer']['launches']}")
     res["launches"] = launches
+    return res
+
+
+def _gloo_fused_checks(outs, dev):
+    """Phase 13 (f) over the gloo ranks: the segmented fused rounds equal
+    the eager rounds on each rank, bit for bit."""
+    c = DIST_FUSED
+    # on the CPU (where the phase is rehearsed) the round runs eagerly
+    form = "segments" if dev.type == "cuda" else "eager"
+    for r, o in enumerate(outs):
+        f = o["fused"]
+        differ = _digests_differ([f["fused"]], [f["eager"]])
+        check(f["form"] == form and not differ
+              and (form == "eager" or f["segments"] == f["cuts"] + 1 > 1),
+              f"gloo rank {r}: the {f['form']} fused rounds ({f['segments']}"
+              f" graphs) differ from the eager rounds at {differ}")
+    res = dict(rounds=c["gloo_rounds"], stations=c["gloo_stations"],
+               form=form, segments=outs[0]["fused"]["segments"],
+               bit_identical=True,
+               ms_per_round=[o["fused"]["ms_per_round"] for o in outs],
+               capture=[o["fused"]["capture"] for o in outs])
+    print(f"fused flagship rounds over two gloo ranks on {dev} "
+          f"({c['gloo_stations']} stations, {c['gloo_stations'] // 2} a rank):"
+          f" captured in {res['segments']} graphs cut at each collective; "
+          f"{c['gloo_rounds']} segmented rounds == {c['gloo_rounds']} eager "
+          f"rounds over the same group bit for bit on each rank; ms/round "
+          f"(fused, eager) {res['ms_per_round']}; capture {res['capture']}")
+    return res
+
+
+def _gloo_transformer_checks(outs, dev):
+    """Phase 13 (g) over the gloo ranks: each rank's rounds against the
+    one-card run, within DIST_TRANSFORMER's tolerances; its kernels."""
+    c = DIST_TRANSFORMER
+    expect = (c["rounds"] * (FULL["stations"] // 2) * FULL["n_layers"]
+              if dev.type == "cuda" else 0)
+    for r, o in enumerate(outs):
+        t = o["transformer"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(t["losses"],
+                                                       t["ref_losses"]))
+        t["loss_max_rel_err"] = rel
+        check(t["stations"] == [2 * r, 2 * r + 1]
+              and rel <= c["loss_rtol"]
+              and t["param_max_abs_err"] <= c["param_atol"],
+              f"gloo rank {r}: the transformer rounds are off the one-card "
+              f"run: loss rel {rel:.3e}, params "
+              f"{t['param_max_abs_err']:.3e}")
+        check(t["launches"].get("tensor_core", 0) == expect
+              == sum(t["launches"].values()),
+              f"gloo rank {r} launched {t['launches']}, not {expect} "
+              "tensor_core kernels")
+    res = [o["transformer"] for o in outs]
+    for r, t in enumerate(res):
+        print(f"transformer engine over two gloo ranks on {dev}, rank {r} "
+              f"(stations {t['stations']}, tokens {t['tokens']}): losses "
+              f"{t['losses']} (one card {t['ref_losses']}, max rel "
+              f"{t['loss_max_rel_err']:.3e} <= {c['loss_rtol']:.0e}), params"
+              f" max |err| {t['param_max_abs_err']:.3e} <= "
+              f"{c['param_atol']:.0e}; ms/round "
+              f"{[round(x, 1) for x in t['round_ms']]}, peak "
+              f"{t['peak_mem_gb']} GB, flash launches {t['launches']}")
+    print("the ring at seq_devices = 2 across ranks cannot run on this card:"
+          " NCCL refuses two ranks on one device and gloo refuses CUDA "
+          "send/recv; tests/test_torch_fed_transformer_mp.py holds it on 4 "
+          "gloo ranks on the CPU")
+    return res
+
+
+def _gloo_federation_checks(outs, dev):
+    """Phase 13 (h): both ranks hold the same records, bit for bit; with
+    the batched device steps they are the one-process Federation's within
+    DIST_FEDERATION's tolerance where device rows enter, bit for bit
+    elsewhere; with each station's step on its own every record is the
+    one-process one's, bit for bit; each host run executed once, on its
+    station's rank."""
+    c = DIST_FEDERATION
+    fed = [o["federation"] for o in outs]
+    one = fed[0]["one"]["bits"]
+    per = c["stations"] // 2
+    for form in ("ranks", "ranks-looped"):
+        check(fed[0][form]["bits"] == fed[1][form]["bits"],
+              f"the gloo ranks' {form} records differ")
+        executed = [(m, s, r) for r, f in enumerate(fed)
+                    for m, s in f[form]["executed"]]
+        want = sorted((rec["method"], s) for rec in one
+                      for s in rec["stations"] if rec["stacked"] == "None")
+        check(sorted((m, s) for m, s, _ in executed) == want
+              and all(s // per == r for _, s, r in executed),
+              f"{form}: a host run did not execute once, on its station's "
+              "rank")
+    looped = fed[0]["ranks-looped"]["bits"]
+    differ = [i for i, (a, b) in enumerate(zip(looped,
+                                               fed[0]["one-looped"]["bits"]))
+              if a != b]
+    check(len(looped) == len(one) and not differ,
+          f"each station's step on its own: the records differ from the "
+          f"one-process ones at {differ[:5]}")
+    err = fed[0]["errors"]
+    far = [s for s in err["spreads"] if not s["spread"] <= s["bound"]]
+    check(not err["differ"] and not far,
+          f"batched: the records differ from the one-process ones at "
+          f"{err['differ'][:5]}, or lie further than their bound: {far}")
+    ms = {"ranks": fed[0]["ranks"]["ms"], "one_process": fed[0]["one"]["ms"],
+          "ranks_looped": fed[0]["ranks-looped"]["ms"],
+          "one_process_looped": fed[0]["one-looped"]["ms"]}
+    n_device = sum(rec["device"] for rec in one)
+    res = dict(stations=c["stations"], records=len(one), device_records=n_device,
+               host_runs=len(executed), errors=err, ms=ms,
+               ms_rank1=fed[1]["ranks"]["ms"],
+               looped_bit_identical=True)
+    rounded = {k: {m: round(t, 1) for m, t in v.items()}
+               for k, v in ms.items()}
+    print(f"Federation over two gloo ranks on {dev} ({c['stations']} "
+          f"stations, {per} a rank): {len(one)} task records, the same bits"
+          f" on both ranks; batched device steps: the {len(one) - n_device} "
+          f"host records == the one-process Federation's bit for bit, the "
+          f"{n_device} with device rows "
+          + ", ".join(f"{s['method']} {s['spread']:.3e} (batching alone "
+                      f"{s['batching']:.3e})" for s in err["spreads"])
+          + f" in norm; each station's step on its own: every record"
+          f" == the one-process one bit for bit; {len(executed)} host runs "
+          f"a form, each once on its station's rank; ms a task over the "
+          f"ranks {rounded['ranks']} vs one process "
+          f"{rounded['one_process']} (looped {rounded['ranks_looped']} vs "
+          f"{rounded['one_process_looped']})")
     return res
 
 
@@ -5014,8 +5676,12 @@ def phase_crypto(fa, torch, dev):
 # phase 16: the reference's control-plane leg (bench.py:114-116,
 # 1127-1288), phase 13's station through the daemon's device engine, and
 # phase 12's registry behind 32 daemons
+# the daemons' fleet push every 5 s, a third of the default 15 s: at
+# 0.5 s the 33 daemons' pushes were the largest holder of the in-memory
+# server's one database lock during (c)'s fan-out (the split it prints;
+# PERF.md), a lock every REST call of the fan-out waits on
 CONTROL = dict(daemons=8, tasks=40, width=2, rows=32, seed=7, turns=3,
-               profile_seconds=4.0, fleet_push_interval=0.5,
+               profile_seconds=4.0, fleet_push_interval=5.0,
                sandbox_rows=4096)
 FANOUT_FED_RTOL = 1e-14    # REST vs in-process central_average: float64
 FANOUT_NUMPY_RTOL = 1e-12  # ... and against numpy's float64 mean
@@ -5328,10 +5994,158 @@ def _fanout_hops(c, task_id, subtasks, t_submit, t_result):
     return hops
 
 
+class _ServerSplit:
+    """Where a ``ServerApp``'s handlers spend their time in the fleet
+    store, installed on its ``server.fleet`` module and its in-memory
+    database: ``health_block`` (``GET /api/health``'s aggregate, its own
+    ``sources`` call included), ``sources`` outside it (the watchdog
+    tick's), the push ingest's inserts and its prunes, and the database
+    lock (the wait to take it and the time it is held), each as calls,
+    total ms and max ms since the last ``window``. ``close`` removes it."""
+
+    def __init__(self, srv):
+        import threading
+
+        from vantage6_tpu_torch.server import fleet
+
+        self.fleet, self.db, self.local = fleet, srv.db, threading.local()
+        self.mu = threading.Lock()
+        self.orig = {k: getattr(fleet, k)
+                     for k in ("health_block", "sources", "ingest", "prune")}
+        self.window()
+
+        def timed(key, fn):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.add(key, time.perf_counter() - t0)
+            return wrapper
+
+        def health_block(*args, **kwargs):
+            self.local.in_health = True
+            try:
+                return timed("health_block", self.orig["health_block"])(
+                    *args, **kwargs)
+            finally:
+                self.local.in_health = False
+
+        def sources(*args, **kwargs):
+            if getattr(self.local, "in_health", False):
+                return self.orig["sources"](*args, **kwargs)
+            return timed("sources", self.orig["sources"])(*args, **kwargs)
+
+        def ingest(*args, **kwargs):
+            self.local.prune_s = 0.0
+            t0 = time.perf_counter()
+            try:
+                return self.orig["ingest"](*args, **kwargs)
+            finally:
+                self.add("ingest_insert", time.perf_counter() - t0
+                         - self.local.prune_s)
+
+        def prune(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return self.orig["prune"](*args, **kwargs)
+            finally:
+                s = time.perf_counter() - t0
+                self.local.prune_s = getattr(self.local, "prune_s", 0.0) + s
+                self.add("prune", s)
+
+        fleet.health_block, fleet.sources = health_block, sources
+        fleet.ingest, fleet.prune = ingest, prune
+        self.lock = srv.db._memory_lock
+        if self.lock is not None and srv.db._memory_conn is not None:
+            srv.db._memory_lock = _TimedLock(self.lock, self)
+            # the lock's holder: the statement that took it
+            for name in ("execute", "query"):
+                setattr(srv.db, name, self._labelled(getattr(srv.db, name)))
+
+    def _labelled(self, method):
+        def call(sql, params=()):
+            self.local.sql = " ".join(sql.split()[:4])[:48]
+            return method(sql, params)
+        return call
+
+    def add(self, key, seconds):
+        with self.mu:
+            n, total, top = self.stats.get(key, (0, 0.0, 0.0))
+            self.stats[key] = (n + 1, total + seconds, max(top, seconds))
+
+    def window(self):
+        """The split since the last call (calls, ms, max ms a key); starts
+        the next window."""
+        with self.mu:
+            out, self.stats = getattr(self, "stats", {}), {}
+        return {k: dict(calls=n, ms=1e3 * s, max_ms=1e3 * top)
+                for k, (n, s, top) in sorted(out.items())}
+
+    def rows(self):
+        return int(self.db.query(
+            "SELECT COUNT(*) AS n FROM fleet_metric")[0]["n"])
+
+    def close(self):
+        for k, fn in self.orig.items():
+            setattr(self.fleet, k, fn)
+        if isinstance(self.db._memory_lock, _TimedLock):
+            self.db._memory_lock = self.lock
+            del self.db.execute, self.db.query
+
+
+class _TimedLock:
+    """A reentrant lock that reports the wait to take it and the time it
+    is held (outermost acquisitions only) to a ``_ServerSplit``."""
+
+    def __init__(self, lock, split):
+        import threading
+
+        self.lock, self.split, self.local = lock, split, threading.local()
+
+    def __enter__(self):
+        t0 = time.perf_counter()
+        self.lock.acquire()
+        depth = getattr(self.local, "depth", 0)
+        if depth == 0:
+            self.local.t = time.perf_counter()
+            self.split.add("lock_wait", self.local.t - t0)
+        self.local.depth = depth + 1
+        return self
+
+    def __exit__(self, *exc):
+        self.local.depth -= 1
+        if self.local.depth == 0:
+            held = time.perf_counter() - self.local.t
+            self.split.add("lock_held", held)
+            self.split.add("held_by " + getattr(self.split.local, "sql", "?"),
+                           held)
+        self.lock.release()
+
+
+def _print_split(label, split, rows):
+    """Two lines: the split's figures, then the lock's time held by
+    statement, the 8 longest."""
+    def fmt(k, v):
+        return (f"{k} {v['calls']} calls {v['ms']:.1f} ms "
+                f"(max {v['max_ms']:.1f})")
+
+    print(f"server-side split, {label} ({rows} fleet_metric rows): "
+          + ", ".join(fmt(k, v) for k, v in split.items()
+                      if not k.startswith("held_by")))
+    held = sorted(((k, v) for k, v in split.items()
+                   if k.startswith("held_by")), key=lambda kv: -kv[1]["ms"])
+    print(f"server-side split, {label}, lock held by: "
+          + "; ".join(fmt(k.removeprefix("held_by "), v)
+                      for k, v in held[:8]))
+
+
 def _cp_fanout(torch, dev, stack, tmp):
     """(c) ``central_average`` over phase 12's registry behind 32 inline
     daemons (researcher -> node A -> proxy -> 32 subtasks), against the
-    in-process Federation and numpy."""
+    in-process Federation and numpy. The server's own split (its fleet
+    store and its database lock, ``_ServerSplit``) is printed for the
+    daemons' start and for the fan-out, before the hops."""
     import pandas as pd
 
     from vantage6_tpu_torch.runtime.federation import federation_from_datasets
@@ -5345,23 +6159,36 @@ def _cp_fanout(torch, dev, stack, tmp):
         path = os.path.join(tmp, f"registry{i:02d}.csv")
         pd.DataFrame({"f0": a}).to_csv(path, index=False)
         csvs.append(path)
-    t0 = time.perf_counter()
-    collab, orgs, daemons = stack.collaboration(
-        "registry", csvs,
-        {"v6-average-py": "vantage6_tpu_torch.workloads.average"},
-        poll_interval=0.05,
-        fleet_push_interval=CONTROL["fleet_push_interval"])
-    start_s = time.perf_counter() - t0
-    c = stack.client
-    t0 = time.perf_counter()
-    task = c.task.create(collaboration=collab["id"],
-                         organizations=[orgs[0]["id"]],
-                         image="v6-average-py",
-                         input_={"method": "central_average",
-                                 "kwargs": {"column": "f0"}})
-    (rest_out,) = c.wait_for_results(task["id"], interval=0.01, timeout=300)
-    rest_end = time.time()
-    rest_ms = 1e3 * (time.perf_counter() - t0)
+    split = _ServerSplit(stack.srv)
+    try:
+        t0 = time.perf_counter()
+        collab, orgs, daemons = stack.collaboration(
+            "registry", csvs,
+            {"v6-average-py": "vantage6_tpu_torch.workloads.average"},
+            poll_interval=0.05,
+            fleet_push_interval=CONTROL["fleet_push_interval"])
+        start_s = time.perf_counter() - t0
+        server = {"start": split.window()}
+        rows = {"start": split.rows()}
+        split.window()
+        c = stack.client
+        t0 = time.perf_counter()
+        task = c.task.create(collaboration=collab["id"],
+                             organizations=[orgs[0]["id"]],
+                             image="v6-average-py",
+                             input_={"method": "central_average",
+                                     "kwargs": {"column": "f0"}})
+        (rest_out,) = c.wait_for_results(task["id"], interval=0.01,
+                                         timeout=300)
+        rest_end = time.time()
+        rest_ms = 1e3 * (time.perf_counter() - t0)
+        server["fanout"] = split.window()
+        rows["fanout"] = split.rows()
+    finally:
+        split.close()
+    for label in ("start", "fanout"):
+        _print_split("daemons' start" if label == "start"
+                     else "submit -> result", server[label], rows[label])
     subtasks = [t for t in c.task.list()
                 if (t.get("parent") or {}).get("id") == task["id"]]
     hops = _fanout_hops(c, task["id"], subtasks, rest_end - rest_ms / 1e3,
@@ -5386,6 +6213,7 @@ def _cp_fanout(torch, dev, stack, tmp):
     rel_np = abs(rest_out["average"] - pooled.mean()) / abs(pooled.mean())
     res = dict(stations=len(f0), patients=int(counts.sum()),
                daemons_start_s=start_s, rest_ms=rest_ms, hops_ms=hops,
+               server_split=server, fleet_rows=rows,
                federation_ms=fed_ms,
                rest=rest_out, federation=fed_out, numpy=float(pooled.mean()),
                rel_err_vs_federation=rel_fed, rel_err_vs_numpy=rel_np,

@@ -99,10 +99,17 @@ for n_stations in (4, 6):
                                loss, stats))
             res[(n_stations, name, sharded, form)] = rounds
             if form == "ranks" and not sharded:
-                try:
-                    eng.run_rounds(params, sx, sy, counts, 0, 2)
-                except NotImplementedError as e:
-                    res["fused_error"] = str(e)
+                # the fused run across the ranks, against eager rounds
+                params0 = W.init_params(0, device="cpu")
+                fused = eng.run_rounds(params0, sx, sy, counts, 0, 2)
+                p, o = params0, eng.init(params0)
+                gen, eager = torch.Generator().manual_seed(0), []
+                for _ in range(2):
+                    p, o, loss, st = eng.round(p, o, sx, sy, counts, key=gen)
+                    eager.append(loss)
+                res[("fused", n_stations, name)] = (
+                    fused[0], fused[1]["ef"], fused[2], p, o["ef"],
+                    torch.stack(eager))
 """
 
 
@@ -182,7 +189,15 @@ def test_a_masked_stations_accumulator_waits(two):
 
 
 def test_fused_compressed_rounds_across_ranks_raise(two, four):
-    """A compressed FedAvg is built on a group mesh; its fused run, a CUDA
-    graph, still raises, naming ROADMAP item 12.1."""
-    for r in (*two, *four[:3]):
-        assert "item 12.1" in r["fused_error"]
+    """Named for what it held before ROADMAP item 12.1: a compressed
+    FedAvg's fused run across ranks raised. It runs now, and two fused
+    rounds equal two eager rounds of the same key over the same group bit
+    for bit: params, each rank's EF rows and the losses."""
+    runs = [r[k] for r in (*two, *four[:3]) for k in r
+            if isinstance(k, tuple) and k[0] == "fused"]
+    # two ranks: 3 compressors at 4 stations, 1 at 6; three of four ranks:
+    # 1 at 4 and 1 at 6 (the fourth holds no station at 6)
+    assert len(runs) == 2 * (3 + 1) + 3 * (1 + 1)
+    for params, ef, losses, e_params, e_ef, e_losses in runs:
+        assert _equal(params, e_params)
+        assert torch.equal(ef, e_ef) and torch.equal(losses, e_losses)

@@ -21,10 +21,11 @@ summation order differs from the one-process form.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import operator
 import warnings
-from typing import TYPE_CHECKING, Any
+from typing import TYPE_CHECKING, Any, Callable
 
 import torch
 import torch.distributed as dist
@@ -103,25 +104,61 @@ def _check_local(mesh: "FederationMesh", n: int) -> None:
         )
 
 
+# Every collective of this module is issued through ``_issue``. A fused
+# round captured in segments (``fed.fedavg``, a gloo group's CUDA tensors,
+# whose collectives wait on the host and cannot be captured) installs
+# ``cut_at``'s callable for the capture: it ends the graph captured so
+# far, runs the collective, and keeps it to be run again, on the same
+# buffers, between that graph's replay and the next one's.
+_CUT: Callable[[Callable[[], None]], None] | None = None
+
+
+@contextlib.contextmanager
+def cut_at(cut: Callable[[Callable[[], None]], None]):
+    """Within the block, every collective ``op`` of this module is handed
+    to ``cut(op)`` instead of being run (see ``_issue``)."""
+    global _CUT
+    _CUT = cut
+    try:
+        yield
+    finally:
+        _CUT = None
+
+
+def _issue(op: Callable[[], None]) -> None:
+    """Run the collective ``op``, which reads and writes only the buffers
+    it closes over; inside ``cut_at``, the cut's."""
+    if _CUT is None:
+        op()
+    else:
+        _CUT(op)
+
+
 def _all_reduce(x: torch.Tensor, mesh: "FederationMesh") -> torch.Tensor:
     """Sum of ``x`` over the station group (a fresh tensor)."""
     out = x.clone()
-    dist.all_reduce(out, group=mesh.station_group)
+    _issue(lambda: dist.all_reduce(out, group=mesh.station_group))
     return out
 
 
 # reduce_scatter_tensor and all_gather_into_tensor are the names every
 # supported torch has; newer ones deprecate them with a FutureWarning
 def _reduce_scatter(out: torch.Tensor, x: torch.Tensor, group: Any) -> None:
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.reduce_scatter_tensor(out, x, group=group)
+    def op():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(out, x, group=group)
+
+    _issue(op)
 
 
 def _all_gather(out: torch.Tensor, x: torch.Tensor, group: Any) -> None:
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(out, x, group=group)
+    def op():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.all_gather_into_tensor(out, x, group=group)
+
+    _issue(op)
 
 
 def fed_sum(stacked: Pytree, mask: Any | None = None, *,

@@ -56,9 +56,17 @@ rows, and the compressed payloads (the uplink) and the losses are
 all-gathered: every rank reconstructs all S deltas and aggregates them in
 the one-process order, so a compressed round equals the one-process round
 bit for bit whatever the layout (the dense round's all-reduce sums in
-another order, a few ulps off). The fused
-``run_rounds`` (a CUDA graph) stays one-process: on such a mesh it raises
-(ROADMAP.md queue 1, item 12.1).
+another order, a few ulps off).
+
+The fused ``run_rounds`` and ``run_rounds_async`` run on such a mesh too,
+in a form chosen by the group's backend (``capture_form``): NCCL
+collectives are captured inside the round's graph, so a round is still
+one replay; gloo's collectives wait on the host and cannot be captured,
+so on CUDA tensors the round is captured in segments cut at each
+collective (``collectives.cut_at``), replayed in turn with the collective
+run between them, and on the CPU it runs eagerly. Each form runs the
+eager round's operations in its order, so K fused rounds equal K eager
+rounds over the same group bit for bit.
 """
 from __future__ import annotations
 
@@ -69,11 +77,13 @@ import time
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from vantage6_tpu_torch._tree import tree_leaves, tree_map
 from vantage6_tpu_torch.common.telemetry import REGISTRY
 from vantage6_tpu_torch.core.mesh import FederationMesh
+from vantage6_tpu_torch.fed import collectives
 from vantage6_tpu_torch.fed.collectives import (
     all_gather_rows,
     all_gather_stations,
@@ -214,7 +224,8 @@ def local_sgd(
 
 
 class FedAvg:
-    """Runs federated-averaging rounds on a one-GPU FederationMesh."""
+    """Runs federated-averaging rounds on a FederationMesh: one card, or
+    a mesh over a process group (one rank a card)."""
 
     def __init__(self, mesh: FederationMesh, spec: FedAvgSpec):
         self.mesh = mesh
@@ -582,15 +593,6 @@ class FedAvg:
                 len(self.mesh.local_stations), rounds=n_rounds,
             )
 
-    def _one_process(self, name: str) -> None:
-        if self.mesh.group is not None:
-            raise NotImplementedError(
-                f"{name} (the fused round, a CUDA graph) across ranks is "
-                "not ported yet: a collective inside a captured graph is "
-                "ROADMAP.md queue 1, item 12.1; run eager rounds (round) "
-                "on a mesh over a process group"
-            )
-
     def _record_fused(self, n_rounds: int) -> None:
         """Fused-run telemetry (host-side, metadata only): how many logical
         rounds each dispatch amortizes."""
@@ -702,7 +704,6 @@ class FedAvg:
         no effect: the inputs are copied into the graph's own buffers and
         never consumed, and the round is replayed, not unrolled."""
         del donate, unroll
-        self._one_process("run_rounds")
         self._record_fused(n_rounds)
         out = self._run(params, stacked_x, stacked_y, counts, key, mask,
                         opt_state, batch_idx, noise, n_rounds=n_rounds)
@@ -744,7 +745,6 @@ class FedAvg:
         ``accept_masks`` is ``[n_rounds, S]`` or ``[S]``. Returns (params,
         opt_state, staleness[S], losses[n], stats)."""
         del donate
-        self._one_process("run_rounds_async")
         spec.validate()
         self._record_fused(n_rounds)
         out = self._run_async(params, stacked_x, stacked_y, counts, key,
@@ -806,9 +806,16 @@ class FedAvg:
         key = repr(tree_map(lambda t: (tuple(t.shape), str(t.dtype)), inputs))
         fused = self._fused.get(key)
         if fused is None:
+            mesh = self.mesh
+            form = capture_form(self.device, mesh.group)
+            if form != "eager" and mesh.group is not None:
+                # the communicators exist before the warm-up and the capture
+                for group in (mesh.station_group, mesh.device_group):
+                    if group is not None:
+                        dist.all_reduce(torch.zeros(1, device=self.device),
+                                        group=group)
             fused = self._fused.build(
-                key, lambda: _FusedRound(self._round_step, inputs,
-                                         capture=self.device.type == "cuda"),
+                key, lambda: _FusedRound(self._round_step, inputs, form),
                 device=self.device)
             if fused.seconds is not None:
                 self.last_capture = fused.seconds
@@ -816,13 +823,37 @@ class FedAvg:
                          n_rounds)
 
 
+def capture_form(device: torch.device, group: Any) -> str:
+    """How a fused round runs on ``device`` over ``group`` (None: one
+    process): ``"eager"`` on the CPU; on CUDA ``"graph"``, the round one
+    captured graph, without a group or over NCCL, whose collectives are
+    captured with it; ``"segments"`` over gloo, whose collectives wait on
+    the host: the round is captured in graphs cut at each collective, and
+    the collectives run between their replays. Another backend raises."""
+    if device.type != "cuda":
+        return "eager"
+    backend = None if group is None else str(dist.get_backend(group))
+    if backend in (None, "nccl"):
+        return "graph"
+    if backend == "gloo":
+        return "segments"
+    raise NotImplementedError(
+        f"a fused round on CUDA over a {backend!r} process group: "
+        "capture_form knows NCCL (collectives in the graph) and gloo "
+        "(the graph cut at each collective)")
+
+
 class _FusedRound:
     """One round over static buffers, run ``n_rounds`` times in a row.
 
     ``step(buffers)`` runs a round and writes its carry back into the
-    buffers in place, so the next round reads it. On a CUDA device the step
-    is captured once as a CUDA graph, after a warm-up on a side stream, and
-    each round is one replay; elsewhere it runs eagerly.
+    buffers in place, so the next round reads it. In the ``"graph"`` and
+    ``"segments"`` forms (``capture_form``) the step is captured once,
+    after a warm-up on a side stream: as one CUDA graph, each round one
+    replay, or as the graphs between its collectives, each round their
+    replays in turn with each collective run between them on the
+    buffers it was captured with. In the ``"eager"`` form it runs as it
+    is.
 
     The round does not keep ``step`` (the engine's bound method): the
     engine holds its rounds, and a reference back would make a cycle that
@@ -830,46 +861,93 @@ class _FusedRound:
     middle of another capture, where destroying a graph invalidates it.
     For the same reason the collector is off while a round is captured."""
 
-    def __init__(self, step: Callable, inputs: dict[str, Any], capture: bool):
+    def __init__(self, step: Callable, inputs: dict[str, Any], form: str):
         self.buffers = tree_map(torch.clone, inputs)
+        # the round's graph ("graph" form), or its graphs and the
+        # collectives between them ("segments" form)
         self.graph: torch.cuda.CUDAGraph | None = None
+        self.segments: list[torch.cuda.CUDAGraph] = []
+        self.cuts: list[Callable[[], None]] = []
         self.outputs: Any = None
         self.seconds: dict[str, float] | None = None
-        if capture:
-            t0 = time.perf_counter()
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP_ROUNDS):
-                    step(self.buffers)
-            torch.cuda.current_stream().wait_stream(side)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            self.graph = torch.cuda.CUDAGraph()
-            gc.collect()
-            gc_was_on = gc.isenabled()
-            gc.disable()
-            try:
+        if form == "eager":
+            return
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_ROUNDS):
+                step(self.buffers)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gc.collect()
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            if form == "graph":
+                self.graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(self.graph):
                     self.outputs = step(self.buffers)
+            else:
+                self.outputs = self._capture_segments(step)
+        finally:
+            if gc_was_on:
+                gc.enable()
+        torch.cuda.synchronize()
+        self.seconds = {"warmup_s": t1 - t0,
+                        "capture_s": time.perf_counter() - t1}
+
+    def _capture_segments(self, step: Callable) -> Any:
+        """Capture ``step`` as graphs cut at each collective (one memory
+        pool, so each graph reads what the one before it wrote); the
+        collectives run once here, on garbage, as every rank's do."""
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream()
+
+        def begin():
+            self.segments.append(torch.cuda.CUDAGraph())
+            self.segments[-1].capture_begin(pool=pool)
+
+        def cut(op):
+            self.segments[-1].capture_end()
+            op()
+            self.cuts.append(op)
+            begin()
+
+        torch.cuda.synchronize()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            begin()
+            try:
+                with collectives.cut_at(cut):
+                    out = step(self.buffers)
             finally:
-                if gc_was_on:
-                    gc.enable()
-            torch.cuda.synchronize()
-            self.seconds = {"warmup_s": t1 - t0,
-                            "capture_s": time.perf_counter() - t1}
+                self.segments[-1].capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+        return out
 
     def close(self) -> None:
-        """Drop the captured graph and the buffers (an evicted round)."""
+        """Drop the captured graphs and the buffers (an evicted round)."""
+        for graph in [self.graph, *self.segments]:
+            if graph is not None:
+                graph.reset()
+        self.graph, self.segments, self.cuts = None, [], []
+        self.buffers = self.outputs = None
+
+    def _replay(self) -> None:
         if self.graph is not None:
-            self.graph.reset()
-        self.graph = self.buffers = self.outputs = None
+            self.graph.replay()
+        for i, graph in enumerate(self.segments):
+            graph.replay()
+            if i < len(self.cuts):
+                self.cuts[i]()
 
     def run(self, step: Callable, inputs: dict[str, Any],
             row: Callable[[int], dict[str, torch.Tensor]],
             carry_names: list[str], n_rounds: int):
         """Copy ``inputs`` (round 0's row included) into the buffers, then
-        per round copy in ``row(k)`` for k > 0, run it (replay the graph,
+        per round copy in ``row(k)`` for k > 0, run it (replay the graphs,
         or ``step`` eagerly), and copy out its loss and stats.
         Returns (the carry named by ``carry_names``, losses[n], stats)."""
         b = self.buffers
@@ -879,8 +957,8 @@ class _FusedRound:
         for k in range(n_rounds):
             for name, t in (row(k) if k else {}).items():
                 b[name].copy_(t)
-            if self.graph is not None:
-                self.graph.replay()
+            if self.outputs is not None:
+                self._replay()
                 loss, round_stats = self.outputs
             else:
                 loss, round_stats = step(b)

@@ -23,7 +23,11 @@ Two execution modes per partial function:
   HTTPS polling. A partial that cannot run under vmap crashes its runs
   with the traceback; there is no per-station loop to fall back to.
 
-Counterpart of ``vantage6_tpu/runtime/federation.py``, on one card, with
+Counterpart of ``vantage6_tpu/runtime/federation.py``, on one card or over
+the ranks of a ``torch.distributed`` group (``group=``, one card a rank:
+``FederationMesh(..., group=, devices_per_station=)``, every rank running
+the same task program, its host runs executed once, on their station's
+rank, and shared through ``runtime.ranks``), with
 the learning-plane record of device aggregations (``learning_history``),
 the host-plane delta compression (``compress_update``/
 ``decompress_update``, error feedback kept per station) and the ops
@@ -35,6 +39,7 @@ identities (a run's ``identity``/``org_identities``, made on first use).
 """
 from __future__ import annotations
 
+import contextlib
 import fnmatch
 import threading
 import time
@@ -57,8 +62,11 @@ from vantage6_tpu_torch.core.config import DatabaseConfig, FederationConfig
 from vantage6_tpu_torch._tree import tree_map
 from vantage6_tpu_torch.core.mesh import FederationMesh, Station
 from vantage6_tpu_torch.runtime.executor import StationExecutor
-from vantage6_tpu_torch.runtime.task import Run, Task, new_run, new_task
+from vantage6_tpu_torch.runtime.task import Run, Task, new_run_ids, new_task
 from vantage6_tpu_torch.runtime.tracing import TRACER
+
+# how often a wait over a group looks for the other ranks' records
+PLANE_POLL_S = 0.005
 
 
 class Federation:
@@ -70,6 +78,19 @@ class Federation:
     is asked for). ``config.compressor`` arms ``compress_update``;
     ``config.learning_stats`` records every device-mode aggregation into
     the learning plane.
+
+    ``group`` (a ``torch.distributed`` process group, ``core.distributed``)
+    spreads the stations over its ranks in slots of
+    ``config.devices_per_station`` ranks, the reference's mesh over every
+    process's devices; every rank builds the Federation and runs the same
+    task program. A device-mode step runs each rank's ``[S_local, ...]``
+    block and gathers the rows once, so every run's result reads on every
+    rank; ``aggregate_stacked`` reduces the local rows with the
+    collectives (``mesh=``). A host-mode run executes once, on the first
+    rank of its station's slot, and its record is shared with the other
+    ranks (``runtime.ranks``): every rank's task records are the
+    one-process Federation's. ``kill_task``, ``run_buffered`` and the
+    autopilot act on this rank's records.
     """
 
     def __init__(
@@ -78,20 +99,29 @@ class Federation:
         device: str | torch.device | None = None,
         algorithms: dict[str, ModuleType | dict[str, Callable]] | None = None,
         metrics: Any = None,
+        group: Any = None,
     ):
         config.validate()
-        if config.devices_per_station != 1:
+        if config.devices_per_station != 1 and group is None:
             raise NotImplementedError(
-                "a Federation runs every station in this process; stations "
-                "spanning ranks (devices_per_station > 1) run through "
-                "workloads/device_engine.py, and a Federation across ranks "
-                "waits for the node: ROADMAP.md queue 1, item 12.5"
+                "a Federation without a process group runs every station "
+                "in this process, on one card; stations spanning ranks "
+                "(devices_per_station > 1) need the ranks: pass group= "
+                "(core.distributed), as ROADMAP.md queue 1, item 12.5 "
+                "describes"
             )
         self.config = config
         # optional MetricsLogger: host runs emit queued→started→finished
         # lifecycle events so stragglers are visible (runtime.metrics)
         self.metrics = metrics
-        self.mesh = FederationMesh(config.n_stations, device=device)
+        self.mesh = FederationMesh(
+            config.n_stations, device=device, group=group,
+            devices_per_station=config.devices_per_station)
+        self._plane = None
+        if group is not None:
+            from vantage6_tpu_torch.runtime.ranks import RankPlane
+
+            self._plane = RankPlane(self, group)
         self.stations = [
             Station(index=i, name=s.name, organization=s.organization or s.name)
             for i, s in enumerate(config.stations)
@@ -496,7 +526,7 @@ class Federation:
         for o in orgs:
             if not 0 <= o < self.n_stations:
                 raise ValueError(f"unknown organization id {o}")
-        task = new_task(
+        fields = dict(
             name=name,
             method=method,
             image=image,
@@ -509,28 +539,40 @@ class Federation:
             session_id=session,
             store_as=store_as,
         )
-        if store_as is not None:
-            # a pool worker finishing a concurrent store_as run mutates the
-            # same bookkeeping dict from _refresh_session_ready
-            with self._session_lock:
-                self._sessions[session]["dataframes"][store_as] = {
-                    "ready": False,
-                    "columns": [],
-                }
         # on-wire input size (estimated v2 frame bytes, metadata-only walk —
         # no device transfer, no actual encode): one measurement shared by
         # every run, the same way a v2 broadcast shares one ciphertext
         from vantage6_tpu_torch.common.serialization import wire_nbytes
 
-        task.input_wire_bytes = wire_nbytes(input_)
+        fields["input_wire_bytes"] = wire_nbytes(input_)
+        if self._plane is None:
+            task = new_task(**fields)
+            self._open_task(task, new_run_ids(len(orgs)), orgs)
+        else:
+            task = self._create_over_ranks(fields, orgs, top=parent is None)
+        if wait:
+            self._await_inflight(task.runs)
+        return task
+
+    def _open_task(self, task: Task, run_ids: list[int],
+                   orgs: list[int]) -> None:
+        """Give ``task`` its runs (ids ``run_ids``, one a station of
+        ``orgs``), record it and dispatch it."""
+        if task.store_as is not None:
+            # a pool worker finishing a concurrent store_as run mutates the
+            # same bookkeeping dict from _refresh_session_ready
+            with self._session_lock:
+                self._sessions[task.session_id]["dataframes"][
+                    task.store_as] = {"ready": False, "columns": []}
         task.runs = [
-            new_run(
+            Run(
+                id=run_id,
                 task_id=task.id,
                 organization=self.stations[o].organization,
                 station_index=o,
                 input_wire_bytes=task.input_wire_bytes,
             )
-            for o in orgs
+            for run_id, o in zip(run_ids, orgs, strict=True)
         ]
         self.tasks[task.id] = task
         # in-process analogue of the server's dispatch span: roots a new
@@ -541,9 +583,78 @@ class Federation:
             attrs={"task_id": task.id, "n_runs": len(task.runs)},
         ):
             self._dispatch(task)
-        if wait:
-            self._await_inflight(task.runs)
-        return task
+
+    # ----------------------------------------------------- across the ranks
+    def _create_over_ranks(self, fields: dict[str, Any], orgs: list[int],
+                           top: bool) -> Task:
+        """A task created over the group: the k-th top-level task is rank
+        0's k-th ``task`` event, a task a run creates is posted by the
+        run's rank; every rank opens it when it applies the event."""
+        plane = self._plane
+        if top:
+            k = plane.next_top()
+            if self.mesh.rank == 0:
+                self._post_task(fields, orgs, root=k, top=True)
+            return self.tasks[plane.top_task(k)]
+        root = plane.roots[fields["parent_id"]]
+        return self.tasks[plane.answer(self._post_task(fields, orgs, root))]
+
+    def _post_task(self, fields: dict[str, Any], orgs: list[int],
+                   root: int, top: bool = False) -> int:
+        task_id, run_ids = self._plane.ids(len(orgs))
+        return self._plane.post("task", dict(
+            id=task_id, fields=fields, run_ids=run_ids, orgs=orgs, top=top),
+            root=root)
+
+    def _apply_task(self, event: dict[str, Any]) -> int:
+        task = Task(id=event["id"], **event["fields"])
+        self._plane.roots[task.id] = event["root"]
+        if event["top"]:
+            self._plane.top_tasks[event["root"]] = task.id
+        self._open_task(task, event["run_ids"], event["orgs"])
+        return task.id
+
+    def _post_run(self, run: Run) -> None:
+        """Share a host run's terminal record with the other ranks; a
+        result they cannot load fails the run, here and there."""
+        from vantage6_tpu_torch.runtime.ranks import UnshareableError
+
+        def post():
+            self._plane.post("run", dict(
+                task=run.task_id, run=run.id, status=run.status.value,
+                result=run.result, log=run.log, queued_at=run.queued_at,
+                started_at=run.started_at, finished_at=run.finished_at,
+                result_wire_bytes=run.result_wire_bytes),
+                root=self._plane.roots[run.task_id])
+
+        try:
+            post()
+        except UnshareableError as e:
+            with run._lock:
+                run.status, run.result = TaskStatus.FAILED, None
+                run.log = "\n".join(filter(None, (run.log, str(e))))
+            post()
+
+    def _apply_run(self, event: dict[str, Any]) -> None:
+        if event["from"] == self.mesh.rank:
+            return  # the record this rank wrote
+        task = self.tasks[event["task"]]
+        run = next(r for r in task.runs if r.id == event["run"])
+        with run._lock:
+            run.status = TaskStatus(event["status"])
+            run.result, run.log = event["result"], event["log"]
+            run.queued_at, run.started_at, run.finished_at = (
+                event["queued_at"], event["started_at"],
+                event["finished_at"])
+            run.result_wire_bytes = event["result_wire_bytes"]
+        with self._inflight_lock:
+            self._inflight_runs.discard(run.id)
+        if task.store_as:
+            self._refresh_session_ready(task)
+
+    def _apply_aggregate(self, event: dict[str, Any]) -> Any:
+        return self._aggregate(self.tasks[event["task"]], event["weights"],
+                               event["agg_mode"])
 
     def get_task(self, task_id: int) -> Task:
         return self.tasks[task_id]
@@ -810,7 +921,7 @@ class Federation:
         returns early as soon as any run fails (wait_for_results raises on
         the failure without draining siblings first).
         """
-        if self._executor is None:
+        if self._executor is None and self._plane is None:
             # close() drops queued-but-unstarted work without clearing
             # _inflight_runs (the pool items never run their finally): say
             # so, instead of letting wait_for_results misread the stranded
@@ -825,6 +936,10 @@ class Federation:
             return
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
+            if self._plane is not None:
+                # the other ranks' records, and what their runs ask of this
+                # rank
+                self._plane.apply()
             if stop_on_failure and any(r.status.has_failed for r in runs):
                 return
             busy = self._runs_in_flight(runs)
@@ -837,15 +952,20 @@ class Federation:
                     f" still running at {stations} after {timeout}s"
                 )
             step = interval
+            if self._plane is not None:
+                step = min(step, PLANE_POLL_S)  # a record may come any time
             if deadline is not None:
-                step = max(1e-3, min(interval, deadline - time.monotonic()))
+                step = max(1e-3, min(step, deadline - time.monotonic()))
             executor = self._executor  # close() may null it mid-wait
-            if executor is None:
+            if executor is not None:
+                executor.help_or_wait(step)
+            elif self._plane is not None:
+                time.sleep(step)
+            else:
                 raise RuntimeError(
                     "federation closed while waiting for runs "
                     f"{[r.id for r in busy]} — their queued work was dropped"
                 )
-            executor.help_or_wait(step)
 
     def wait_for_results(
         self,
@@ -932,11 +1052,24 @@ class Federation:
             # device mode stays synchronous: all stations already execute as
             # ONE batched program — there is nothing to parallelize host-side
             self._run_device_step(task, fn, runnable)
-        elif self._executor is None:
-            for run in runnable:
-                self._run_host(task, fn, run)
         else:
-            for run in runnable:
+            self._run_host_runs(task, fn, runnable)
+
+    def _run_host_runs(self, task: Task, fn: Callable,
+                       runs: list[Run]) -> None:
+        """Execute host runs, on the pool if there is one. Over a group
+        only this rank's stations' runs execute here; the others' are in
+        flight until their owner's record arrives (``_apply_run``)."""
+        if self._plane is not None:
+            remote = [r for r in runs
+                      if not self._plane.owns(r.station_index)]
+            with self._inflight_lock:
+                self._inflight_runs.update(r.id for r in remote)
+            runs = [r for r in runs if self._plane.owns(r.station_index)]
+        for run in runs:
+            if self._executor is None:
+                self._run_host(task, fn, run)
+            else:
                 self._submit_host_run(task, fn, run)
 
     def _submit_host_run(self, task: Task, fn: Callable, run: Run) -> None:
@@ -1035,21 +1168,32 @@ class Federation:
         one per station the first time an algorithm signs. Keygen is locked:
         concurrent pooled runs must not both generate (and then disagree on)
         a station's identity."""
+        plane = self._plane
+        if plane is not None and not plane.owns(station):
+            raise RuntimeError(
+                f"station {station}'s identity key is held by rank "
+                f"{plane.owner(station)}, which runs its runs")
         if self._identity_cryptors[station] is None:
             from vantage6_tpu_torch.common.encryption import RSACryptor
 
             with self._identity_lock:
                 if self._identity_cryptors[station] is None:
-                    self._identity_cryptors[station] = RSACryptor(
-                        RSACryptor.create_new_rsa_key()
-                    )
+                    cryptor = RSACryptor(RSACryptor.create_new_rsa_key())
+                    if plane is not None:  # the other ranks verify with it
+                        plane.publish_identity(station,
+                                               cryptor.public_key_str)
+                    self._identity_cryptors[station] = cryptor
         return self._identity_cryptors[station]
 
     def _org_identity_registry(self) -> dict[int, str]:
         """station index -> base64 PEM public identity key, for ALL
-        stations — the out-of-band trust root advert verification needs."""
+        stations — the out-of-band trust root advert verification needs
+        (over a group, the keys of the other ranks' stations as their
+        owners published them)."""
+        plane = self._plane
         return {
-            i: self._station_identity(i).public_key_str
+            i: (plane.identity(i) if plane is not None and not plane.owns(i)
+                else self._station_identity(i).public_key_str)
             for i in range(self.n_stations)
         }
 
@@ -1124,6 +1268,20 @@ class Federation:
     def _run_host(
         self, task: Task, fn: Callable, run: Run, trace_parent: Any = None,
     ) -> None:
+        """Execute one host run here; over a group, then share its
+        terminal record with the other ranks."""
+        if self._plane is None:
+            self._execute_host(task, fn, run, trace_parent)
+            return
+        try:
+            self._execute_host(task, fn, run, trace_parent)
+        finally:
+            if run.started_at is not None and run.status.is_finished:
+                self._post_run(run)
+
+    def _execute_host(
+        self, task: Task, fn: Callable, run: Run, trace_parent: Any = None,
+    ) -> None:
         from vantage6_tpu_torch.algorithm.client import AlgorithmClient
         from vantage6_tpu_torch.common.faults import FAULTS
 
@@ -1179,7 +1337,7 @@ class Federation:
                     "organization_id": run.organization,
                 },
                 require_parent=True,
-            ), algorithm_environment(env):
+            ), algorithm_environment(env), self._in_run():
                 result = fn(*args, **kwargs)
             if task.store_as:
                 result = self._store_session_result(task, run, result)
@@ -1207,6 +1365,20 @@ class Federation:
                 self.metrics.log(
                     "host_run", task_id=task.id, **run_lifecycle(run)
                 )
+
+    @contextlib.contextmanager
+    def _in_run(self):
+        """Marks this thread as executing a run (over a group, what the
+        run asks of the device plane is posted to every rank)."""
+        if self._plane is None:
+            yield
+            return
+        local = self._plane.local
+        was, local.in_run = getattr(local, "in_run", False), True
+        try:
+            yield
+        finally:
+            local.in_run = was
 
     # ----------------------------------------------------------- device mode
     def _run_device_step(
@@ -1246,6 +1418,15 @@ class Federation:
                 out = self.mesh.fed_map(
                     lambda d: fn(d, *args, **kwargs), stacked, batched=True
                 )
+                if self.mesh.group is not None:
+                    # every station's rows on every rank: a run's result
+                    # reads here whichever rank computed it
+                    from vantage6_tpu_torch.fed.collectives import (
+                        all_gather_rows,
+                    )
+
+                    out = tree_map(lambda x: all_gather_rows(self.mesh, x),
+                                   out)
         except Exception:
             tb = traceback.format_exc(limit=8)
             for run in runnable:
@@ -1301,17 +1482,31 @@ class Federation:
           - ``"scattered_bf16"``: same, with the summed vector rounded to
             bfloat16 as the wire would carry it.
         """
-        from vantage6_tpu_torch.fed.collectives import (
-            fed_mean,
-            fed_mean_scattered_tree,
-        )
-
         if isinstance(task, int):
             task = self.get_task(task)
         if task.stacked_result is None:
             raise ValueError(
                 f"task {task.id} has no stacked (device-mode) result"
             )
+        if self._plane is not None and self._plane.in_run:
+            # a run aggregates: every rank joins the collective reduction
+            return self._plane.answer(self._plane.post("aggregate", dict(
+                task=task.id, weights=weights, agg_mode=agg_mode),
+                root=self._plane.roots[task.id]))
+        return self._aggregate(task, weights, agg_mode)
+
+    def _aggregate(self, task: Task, weights: Any, agg_mode: str) -> Any:
+        """``aggregate_stacked`` on this rank; over a group, the reduction
+        of the local stations' rows over the station group (``mesh=``)."""
+        from vantage6_tpu_torch.fed.collectives import (
+            fed_mean,
+            fed_mean_scattered_tree,
+        )
+
+        stacked, mesh = task.stacked_result, None
+        if self.mesh.group is not None:
+            mesh, rows = self.mesh, self.mesh.local_stations
+            stacked = tree_map(lambda x: x[rows.start:rows.stop], stacked)
         # the aggregation leg of the round's trace (no-op outside a trace)
         with TRACER.span(
             "aggregate", kind="aggregate", service="federation",
@@ -1320,8 +1515,8 @@ class Federation:
         ):
             if agg_mode == "replicated":
                 out = fed_mean(
-                    task.stacked_result, weights=weights,
-                    mask=task.participation,
+                    stacked, weights=weights,
+                    mask=task.participation, mesh=mesh,
                 )
             elif agg_mode not in ("scattered", "scattered_bf16"):
                 raise ValueError(
@@ -1331,7 +1526,7 @@ class Federation:
             else:
                 out = fed_mean_scattered_tree(
                     self.mesh,
-                    task.stacked_result,
+                    stacked,
                     weights=weights,
                     mask=task.participation,
                     comm_dtype=(
@@ -1444,11 +1639,10 @@ class Federation:
                 ):
                     if getattr(fn, "__v6t_device_step__", False):
                         self._run_device_step(task, fn, [run])
-                    elif self._executor is None:
-                        self._run_host(task, fn, run)
                     else:
-                        self._submit_host_run(task, fn, run)
-                        owed.append(run)
+                        self._run_host_runs(task, fn, [run])
+                        if self._executor is not None:
+                            owed.append(run)
         if owed and wait:
             self._await_inflight(owed)
 
@@ -1587,17 +1781,22 @@ def federation_from_datasets(
     device: str | torch.device | None = None,
     name: str = "mock",
     executor_workers: int | None = None,
+    group: Any = None,
+    devices_per_station: int = 1,
 ) -> Federation:
     """Build a ready Federation from in-memory per-station datasets —
     the MockAlgorithmClient construction path. ``device`` is the card
     (CUDA unless ``"cpu"`` is asked for); ``executor_workers`` configures
     the host-path station executor pool (None = auto, 0 = synchronous;
-    see FederationConfig)."""
+    see FederationConfig); ``group`` and ``devices_per_station`` lay the
+    stations out over a process group's ranks (every rank passes every
+    station's dataset)."""
     from vantage6_tpu_torch.core.config import StationConfig
 
     cfg = FederationConfig(
         name=name,
         executor_workers=executor_workers,
+        devices_per_station=devices_per_station,
         stations=[
             StationConfig(
                 name=f"station_{i}",
@@ -1607,6 +1806,6 @@ def federation_from_datasets(
             for i in range(len(datasets))
         ],
     )
-    fed = Federation(cfg, device=device, algorithms=algorithms)
+    fed = Federation(cfg, device=device, algorithms=algorithms, group=group)
     fed.set_datasets(label, datasets)
     return fed

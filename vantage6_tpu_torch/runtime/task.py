@@ -186,3 +186,8 @@ def new_task(**kw: Any) -> Task:
 
 def new_run(**kw: Any) -> Run:
     return Run(id=next(_run_ids), **kw)
+
+
+def new_run_ids(n: int) -> list[int]:
+    """The ids of ``n`` new runs."""
+    return [next(_run_ids) for _ in range(n)]

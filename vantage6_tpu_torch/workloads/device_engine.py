@@ -20,8 +20,10 @@ Columns are read through ``workloads/_columns.py``, so a station's frame
 may be a pandas DataFrame or a dict of numpy columns. The port's entry
 points run on CUDA unless ``device="cpu"`` is asked for; once the process
 has joined a group, the mesh runs on the rank's device. The daemon path
-(``engine="device"`` tasks) waits for the node (ROADMAP.md queue 1, items
-11.5 and 12.5).
+(``engine="device"`` tasks, ROADMAP.md queue 1, item 11.5) runs these
+methods in a node daemon that joined the group; a ``Federation`` over the
+group (``Federation(..., group=)``, item 12.5) runs its device-mode
+partials over its ranks.
 """
 from __future__ import annotations
 

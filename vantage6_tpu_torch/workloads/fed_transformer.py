@@ -1,4 +1,4 @@
-"""Federated causal-LM training on one GPU: stations x a decoder transformer.
+"""Federated causal-LM training: stations x a decoder transformer.
 
 Counterpart of ``vantage6_tpu/workloads/fed_transformer.py``. Each station
 trains on its own token shard; per-station gradients are taken in isolation
@@ -7,12 +7,24 @@ trains on its own token shard; per-station gradients are taken in isolation
 shared model with Adam.
 
 Attention is ``"ring"`` (the default, as in the reference: exact attention
-over ``seq_devices`` sequence shards, parallel.ring_attention, which lays
-the shards out on the one card as the stations fold into one slot),
+over ``seq_devices`` sequence shards, parallel.ring_attention),
 ``"flash"`` (the hand-written CUDA kernel, ops.flash_attention; its plain
 version on CPU tensors) or ``"recompute"`` (the same memory profile
 without a kernel, ops.recompute_attention). The last two need the full
 sequence, ``seq_devices == 1``.
+
+On one card (``make_engine`` without a group) the stations fold into one
+slot and each station's ``seq_devices`` sequence shards are laid out on
+the card. Over a ``torch.distributed`` group of W ranks the engine takes
+the reference's (station, seq) layout: ``FederationMesh(n_stations,
+group=, devices_per_station=seq_devices)``, W / seq_devices station slots
+with the stations packed into them as ``fed_map`` packs them, and the
+``seq_devices`` ranks of a slot (its ``device_group``) holding one
+sequence shard each. Each rank then attends through the per-rank ring
+(``ring_attention(q, k, v, device_group)``), sums the loss's nll and
+count over ``device_group``, and all-reduces the station's gradients over
+it, as the reference psums them; the stations' gradients are aggregated
+over ``station_group``.
 
 The ring path keeps the reference's bookkeeping at ``seq_devices = P``:
 positions by global offset, each shard's last position without a target
@@ -30,6 +42,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -41,7 +55,10 @@ from vantage6_tpu_torch.ops.flash_attention import (
     recompute_attention,
 )
 from vantage6_tpu_torch.optim import Adam, adam, apply_updates
-from vantage6_tpu_torch.parallel.ring_attention import ring_attention_sharded
+from vantage6_tpu_torch.parallel.ring_attention import (
+    ring_attention,
+    ring_attention_sharded,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,30 +139,46 @@ def _ln(x: torch.Tensor) -> torch.Tensor:
     return ((xf - mu) * torch.rsqrt(var + 1e-6)).to(x.dtype)
 
 
+def _sequence_group(group: Any) -> tuple[int, int]:
+    """(shards, this rank's shard) of a sequence split over ``group``;
+    (1, 0) without one."""
+    if group is None:
+        return 1, 0
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
 def forward_local(
     params: dict[str, Any],
-    tokens_local: torch.Tensor,  # [B, T]
+    tokens_local: torch.Tensor,  # [B, T] (over a group: [B, T/P])
     cfg: TransformerConfig,
     seq_shards: int = 1,
+    group: Any = None,
 ) -> torch.Tensor:
     """Logits [B, T, V] for a station's full sequence. Under ``"ring"``
     the sequence is ``seq_shards`` contiguous shards whose attention spans
     the whole sequence through the ring; every other layer acts on each
     position alone, so it runs on the sequence unsplit, with each shard's
-    positions at its global offset."""
+    positions at its global offset. With ``group`` (the P ranks of a
+    station's sequence, ``"ring"`` only) ``tokens_local`` is this rank's
+    shard, its positions at the shard's offset, and the ring runs across
+    the ranks: logits [B, T/P, V] for the shard."""
     b, t_local = tokens_local.shape
+    _, shard = _sequence_group(group)
 
     def cast(w: torch.Tensor) -> torch.Tensor:
         return w.to(cfg.dtype)
 
     tokens_local = tokens_local.long()
     x = cast(params["embed"])[tokens_local]
-    x = x + cast(params["pos"][:t_local])[None]
+    offset = shard * t_local
+    x = x + cast(params["pos"][offset:offset + t_local])[None]
 
     def heads(z: torch.Tensor) -> torch.Tensor:  # [B, T, d] -> [B, T, H, Dh]
         return z.reshape(b, t_local, cfg.n_heads, cfg.head_dim)
 
     def attend(q, k, v):  # [B, T, H, Dh] each -> [B, T, H, Dh]
+        if cfg.attention == "ring" and group is not None:
+            return ring_attention(q, k, v, group, causal=True)
         if cfg.attention == "ring":
             return ring_attention_sharded(q, k, v, seq_shards, causal=True)
         impl = (flash_attention if cfg.attention == "flash"
@@ -177,26 +210,40 @@ def loss_local(
     tokens_local: torch.Tensor,
     cfg: TransformerConfig,
     seq_shards: int = 1,
+    group: Any = None,
 ) -> torch.Tensor:
     """Mean next-token cross-entropy over all shards of the sequence.
 
     Within a shard, position t predicts t+1; each shard's final token has
     its target on the next shard, so that position has no prediction, as
-    in the reference (T/P - 1 predictions a shard)."""
+    in the reference (T/P - 1 predictions a shard). With ``group`` (the
+    ranks of the station's sequence) ``tokens_local`` is this rank's
+    shard, and the nll's sum and count are summed over the group, as the
+    reference's ``loss_local`` psums them
+    (``vantage6_tpu/workloads/fed_transformer.py:188-192``): a
+    differentiable all-reduce, whose backward all-reduces the cotangents,
+    as the psum transposes to a psum there."""
     tokens_local = tokens_local.long()
     b, t = tokens_local.shape
-    logits = forward_local(params, tokens_local, cfg, seq_shards)
+    if group is not None:
+        seq_shards = 1
+    logits = forward_local(params, tokens_local, cfg, seq_shards, group)
     shape = (b, seq_shards, t // seq_shards)
     logits = logits.reshape(*shape, -1)
     targets = tokens_local.reshape(shape)[..., 1:]
     logp = torch.log_softmax(logits[..., :-1, :].float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    return nll.sum() / nll.numel()
+    if group is None:
+        return nll.sum() / nll.numel()
+    total = dist_fn.all_reduce(nll.sum(), group=group)
+    count = dist_fn.all_reduce(nll.new_full((), nll.numel()), group=group)
+    return total / count
 
 
 @dataclasses.dataclass(eq=False)
 class FedTransformer:
-    """Training engine over a one-GPU FederationMesh."""
+    """Training engine over a FederationMesh: one card, or a mesh over a
+    process group whose slots are ``seq_devices`` ranks each."""
 
     mesh: FederationMesh
     cfg: TransformerConfig
@@ -215,7 +262,9 @@ class FedTransformer:
         return params, self.optimizer.init(params)
 
     def shard_tokens(self, tokens: np.ndarray | torch.Tensor) -> torch.Tensor:
-        """[S, B, T] token ids on the device."""
+        """[S, B, T] token ids on the device; over a group, this rank's
+        ``[S_local, B, T/P]`` block: its stations' rows, its sequence
+        shard's positions."""
         t = tokens.shape[-1]
         if t > self.cfg.max_len:
             raise ValueError(
@@ -226,7 +275,15 @@ class FedTransformer:
                 f"sequence length {t} is not divisible by "
                 f"seq_devices={self.seq_devices}"
             )
-        return torch.as_tensor(np.asarray(tokens)).to(self.device).long()
+        tokens = torch.as_tensor(np.asarray(tokens))
+        if self.mesh.group is not None:
+            # the slot's ranks split the sequences (none at one a slot)
+            shards, shard = _sequence_group(self.mesh.device_group)
+            width = t // shards
+            rows = self.mesh.local_stations
+            tokens = tokens[rows.start:rows.stop, :,
+                            shard * width:(shard + 1) * width]
+        return tokens.to(self.device).long()
 
     def station_grads(self, params: Any,
                       tokens: torch.Tensor) -> tuple[torch.Tensor, Any]:
@@ -239,14 +296,27 @@ class FedTransformer:
         (``vantage6_tpu/workloads/fed_transformer.py:190-191``), the psum
         transposes to a psum under ``shard_map``, and ``round`` then psums
         the P shards' equal gradients (``:241``). The port reproduces that
-        on purpose (ROADMAP.md, queue 3)."""
-        p = self.seq_devices
+        on purpose (ROADMAP.md, queue 3). Across ranks the factor comes as
+        it comes there: the loss's all-reduce over the sequence's ranks
+        all-reduces the cotangents in its backward, and the station's
+        gradients are then all-reduced over those ranks (the reference's
+        ``lax.psum(grads, SEQ_AXIS)``); the stacked values are the local
+        stations' ``[S_local]``."""
+        p, group = self.seq_devices, self.mesh.device_group
 
         def one_station(tok, params):
             leaves = tree_map(lambda x: x.detach().requires_grad_(), params)
-            loss = loss_local(leaves, tok, self.cfg, p)
-            # the reference's factor P, explicitly (see the docstring)
-            grads = torch.autograd.grad(p * loss, tree_leaves(leaves))
+            if group is None:
+                loss = loss_local(leaves, tok, self.cfg, p)
+                # the reference's factor P, explicitly (see the docstring)
+                grads = torch.autograd.grad(p * loss, tree_leaves(leaves))
+            else:
+                loss = loss_local(leaves, tok, self.cfg, group=group)
+                grads = torch.autograd.grad(loss, tree_leaves(leaves))
+                flat = collectives.flatten_tree(list(grads))
+                dist.all_reduce(flat, group=group)
+                grads = tree_leaves(collectives.unflatten_like(
+                    list(grads), flat))
             return loss.detach(), tree_unflatten(params, list(grads))
 
         return self.mesh.fed_map(one_station, tokens,
@@ -259,14 +329,18 @@ class FedTransformer:
         tokens: torch.Tensor,  # [S, B, T]
         mask: Any,  # [S] participation
     ) -> tuple[Any, Any, torch.Tensor]:
-        """One federated round: per-station grads, FedAvg, Adam step."""
+        """One federated round: per-station grads, FedAvg, Adam step.
+        Over a group ``tokens`` is this rank's block (``shard_tokens``),
+        ``mask`` the global ``[S]``, and the aggregation goes over the
+        station group; every rank ends with the same params."""
         mask = torch.as_tensor(mask, device=self.device)
         losses, grads = self.station_grads(params, tokens)
         # explicit cross-station aggregation: the ONLY place station data mixes
-        g_mean = collectives.fed_mean(grads, mask=mask)
+        mesh = self.mesh if self.mesh.group is not None else None
+        g_mean = collectives.fed_mean(grads, mask=mask, mesh=mesh)
         updates, opt_state = self.optimizer.update(g_mean, opt_state, params)
         params = apply_updates(params, updates)
-        loss = collectives.fed_mean(losses, mask=mask)
+        loss = collectives.fed_mean(losses, mask=mask, mesh=mesh)
         return params, opt_state, loss
 
 
@@ -276,10 +350,15 @@ def make_engine(
     cfg: TransformerConfig | None = None,
     lr: float = 1e-3,
     device: str | torch.device | None = None,
+    group: Any = None,
 ) -> FedTransformer:
-    """The engine on one card (``device``; CUDA unless ``"cpu"`` is asked
-    for). The S stations fold into the single device slot, and each
-    station's ``seq_devices`` sequence shards are laid out on it."""
+    """The engine on ``device`` (CUDA unless ``"cpu"`` is asked for).
+    Without ``group`` the S stations fold into the card's one slot, and
+    each station's ``seq_devices`` sequence shards are laid out on it.
+    Over ``group`` (a ``torch.distributed`` group of W ranks, one card
+    each; building it is collective, see ``FederationMesh``) the ranks
+    form W / seq_devices slots of ``seq_devices`` ranks, the reference's
+    (station, seq) mesh, and every rank of the group must hold a slot."""
     cfg = cfg or TransformerConfig()
     if cfg.attention in ("flash", "recompute") and seq_devices != 1:
         raise ValueError(
@@ -289,7 +368,17 @@ def make_engine(
         )
     if cfg.attention not in ("ring", "flash", "recompute"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
-    mesh = FederationMesh(n_stations, device=device)
+    if group is None:
+        mesh = FederationMesh(n_stations, device=device)
+    else:
+        mesh = FederationMesh(n_stations, device=device, group=group,
+                              devices_per_station=seq_devices)
+        if mesh.slot is None:
+            raise ValueError(
+                f"rank {mesh.rank} of {mesh.world_size} holds no station: "
+                f"{n_stations} stations take {mesh.station_axis_size} slots "
+                f"of {seq_devices} ranks; run the engine on "
+                f"{mesh.station_axis_size * seq_devices} ranks")
     return FedTransformer(mesh=mesh, cfg=cfg, optimizer=adam(lr),
                           seq_devices=seq_devices)
 
