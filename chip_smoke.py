@@ -320,23 +320,30 @@ Phases, each of which raises (exit code 1) on failure:
    the direct call's (medians of 3, in turns), and a ``POST
    /api/debug/profile`` window around one task holding CUDA kernel events.
    (c) Phase 12's registry (covariate f0, 1,817,882 patients at seed 12)
-   behind 32 inline daemons: ``central_average`` researcher -> node A ->
-   proxy -> 32 runs -> aggregate, its count exact and its average within
-   1e-14 of the in-process ``Federation``'s and 1e-12 of numpy's; wall ms
-   of both, and the REST wall split into its hops from the runs' server
-   stamps (the central's claim, the subtasks' creation, each subtask's
-   claim and its run, that is its CSV load and partial, the central's
-   wait after the last partial, the researcher's wake-up), after the
-   server's own split over the daemons' start and over the fan-out: the
-   time its handlers spend in ``health_block``, in ``sources`` outside it,
-   in the telemetry push's inserts and prunes, and waiting for and
-   holding the database lock, with the statements that held it. (d) One
+   behind 32 inline daemons pushing fleet telemetry at the default 15 s:
+   ``central_average`` researcher -> node A -> proxy -> 32 runs ->
+   aggregate, twice: quiet, before any daemon's first push is due, and
+   loaded, with the server's own snapshot and each daemon's push fired
+   once, evenly over the first half of the quiet one's length; each
+   count exact and each average within 1e-14 of the in-process
+   ``Federation``'s and 1e-12 of numpy's; the loaded one ingests at least
+   33 pushes between submit and result, leaves health "ok" and every
+   daemon read back from ``/api/fleet``. Wall ms of each and of the
+   Federation, and each REST wall split into its hops from the runs'
+   server stamps (the central's claim, the subtasks' creation, each
+   subtask's claim and its run, that is its CSV load and partial, the
+   central's wait after the last partial, the researcher's wake-up),
+   after the server's own split over the daemons' start and over each
+   fan-out: the time its handlers spend in ``health_block``, in
+   ``sources`` outside it, in the telemetry push's inserts and prunes,
+   and waiting for and holding the database lock, the holds by caller
+   (the route or thread that took the lock) and by statement. (d) One
    ``partial_average`` through a sandbox-mode daemon: a
    child process with the card hidden and ``jax`` shadowed by a package
    that records any import; the child's wall ms. (e) ``/api/health`` ok,
    ``/api/metrics`` with the server's series and ``v6t_device_*``, and
-   each daemon of (b)-(d) read back from ``/api/fleet`` (each pushes every
-   5 s). No flash kernel may launch.
+   each daemon of (b)-(d) read back from ``/api/fleet`` ((b)'s and (d)'s
+   push every 5 s). No flash kernel may launch.
 
 17. the CLI on the card (``click`` and PyYAML required; without either
    one line says it was not run), each command a child process that sees
@@ -5676,10 +5683,10 @@ def phase_crypto(fa, torch, dev):
 # phase 16: the reference's control-plane leg (bench.py:114-116,
 # 1127-1288), phase 13's station through the daemon's device engine, and
 # phase 12's registry behind 32 daemons
-# the daemons' fleet push every 5 s, a third of the default 15 s: at
-# 0.5 s the 33 daemons' pushes were the largest holder of the in-memory
-# server's one database lock during (c)'s fan-out (the split it prints;
-# PERF.md), a lock every REST call of the fan-out waits on
+# (b)'s and (d)'s daemons push fleet telemetry every 5 s, a third of the
+# default 15 s, so that each has pushed before it stops and (e) reads it
+# back; (c)'s push at the default 15 s, and its loaded fan-out fires one
+# push of each
 CONTROL = dict(daemons=8, tasks=40, width=2, rows=32, seed=7, turns=3,
                profile_seconds=4.0, fleet_push_interval=5.0,
                sandbox_rows=4096)
@@ -5958,7 +5965,7 @@ def _cp_device_engine(torch, dev, stack, tmp):
     return res
 
 
-def _fanout_hops(c, task_id, subtasks, t_submit, t_result):
+def _fanout_hops(c, task_id, subtasks, t_submit, t_result, label):
     """Where the fan-out's wall time went, in ms, from the server's run
     stamps (``assigned_at`` by the server, ``started_at`` and
     ``finished_at`` by the daemons, one host clock): the researcher's
@@ -5988,7 +5995,7 @@ def _fanout_hops(c, task_id, subtasks, t_submit, t_result):
     slowest = max(subs, key=lambda r: r["finished_at"] - r["assigned_at"])
     hops["slowest_subtask_org"] = (slowest.get("organization") or {}).get(
         "id")
-    print("central fan-out hops (ms): " + ", ".join(
+    print(f"central fan-out hops, {label} (ms): " + ", ".join(
         f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
         for k, v in hops.items()))
     return hops
@@ -5996,12 +6003,16 @@ def _fanout_hops(c, task_id, subtasks, t_submit, t_result):
 
 class _ServerSplit:
     """Where a ``ServerApp``'s handlers spend their time in the fleet
-    store, installed on its ``server.fleet`` module and its in-memory
-    database: ``health_block`` (``GET /api/health``'s aggregate, its own
-    ``sources`` call included), ``sources`` outside it (the watchdog
-    tick's), the push ingest's inserts and its prunes, and the database
-    lock (the wait to take it and the time it is held), each as calls,
-    total ms and max ms since the last ``window``. ``close`` removes it."""
+    store, installed on its ``server.fleet`` module, its route table and
+    its in-memory database: ``health_block`` (``GET /api/health``'s
+    aggregate, its own ``sources`` call included), ``sources`` outside it
+    (the watchdog tick's), the push ingest (``ingest_insert``, whose calls
+    are the pushes ingested) and its prunes, and the database lock: the
+    wait to take it and the time it is held (outermost holds only), each
+    hold and wait also under its caller (``METHOD /api/route`` for a
+    request's handler, the thread's name outside a request) and each hold
+    under its statement. Each key has calls, total ms and max ms since the
+    last ``window``. ``close`` removes it."""
 
     def __init__(self, srv):
         import threading
@@ -6009,7 +6020,8 @@ class _ServerSplit:
         from vantage6_tpu_torch.server import fleet
 
         self.fleet, self.db, self.local = fleet, srv.db, threading.local()
-        self.mu = threading.Lock()
+        self.app, self.mu = srv.app, threading.Lock()
+        self.thread = threading.current_thread
         self.orig = {k: getattr(fleet, k)
                      for k in ("health_block", "sources", "ingest", "prune")}
         self.window()
@@ -6056,18 +6068,39 @@ class _ServerSplit:
 
         fleet.health_block, fleet.sources = health_block, sources
         fleet.ingest, fleet.prune = ingest, prune
+        # the caller of every hold a request makes, its auth included:
+        # the route whose pattern matches, as the app matches it
+        orig_handle, routes = self.app.handle, self.app._routes
+
+        def handle(request):
+            self.local.caller = next(
+                (f"{request.method} {pattern}" for regex, _, pattern in routes
+                 if regex.match(request.path)), f"{request.method} ?")
+            try:
+                return orig_handle(request)
+            finally:
+                self.local.caller = None
+
+        self.app.handle = handle
         self.lock = srv.db._memory_lock
         if self.lock is not None and srv.db._memory_conn is not None:
             srv.db._memory_lock = _TimedLock(self.lock, self)
-            # the lock's holder: the statement that took it
-            for name in ("execute", "query"):
-                setattr(srv.db, name, self._labelled(getattr(srv.db, name)))
+            # the holder's statement: the one that took the lock (a batch's
+            # first)
+            for name in ("execute", "query", "execute_batch"):
+                setattr(srv.db, name, self._labelled(getattr(srv.db, name),
+                                                     name == "execute_batch"))
 
-    def _labelled(self, method):
+    def _labelled(self, method, batch):
         def call(sql, params=()):
-            self.local.sql = " ".join(sql.split()[:4])[:48]
-            return method(sql, params)
+            first = sql[0][0] if batch and sql else sql
+            self.local.sql = " ".join(str(first).split()[:4])[:48]
+            return method(sql) if batch else method(sql, params)
         return call
+
+    def caller(self):
+        return (getattr(self.local, "caller", None)
+                or "thread " + self.thread().name)
 
     def add(self, key, seconds):
         with self.mu:
@@ -6089,14 +6122,16 @@ class _ServerSplit:
     def close(self):
         for k, fn in self.orig.items():
             setattr(self.fleet, k, fn)
+        del self.app.handle
         if isinstance(self.db._memory_lock, _TimedLock):
             self.db._memory_lock = self.lock
-            del self.db.execute, self.db.query
+            del self.db.execute, self.db.query, self.db.execute_batch
 
 
 class _TimedLock:
     """A reentrant lock that reports the wait to take it and the time it
-    is held (outermost acquisitions only) to a ``_ServerSplit``."""
+    is held (outermost acquisitions only) to a ``_ServerSplit``, in all
+    and by caller and statement."""
 
     def __init__(self, lock, split):
         import threading
@@ -6109,7 +6144,9 @@ class _TimedLock:
         depth = getattr(self.local, "depth", 0)
         if depth == 0:
             self.local.t = time.perf_counter()
-            self.split.add("lock_wait", self.local.t - t0)
+            wait = self.local.t - t0
+            self.split.add("lock_wait", wait)
+            self.split.add("wait\t" + self.split.caller(), wait)
         self.local.depth = depth + 1
         return self
 
@@ -6118,34 +6155,132 @@ class _TimedLock:
         if self.local.depth == 0:
             held = time.perf_counter() - self.local.t
             self.split.add("lock_held", held)
-            self.split.add("held_by " + getattr(self.split.local, "sql", "?"),
-                           held)
+            self.split.add(f"hold\t{self.split.caller()}\t"
+                           + getattr(self.split.local, "sql", "?"), held)
         self.lock.release()
 
 
+def _split_holders(split):
+    """The lock's holds and waits of a split window regrouped: by caller
+    (holds, with each caller's wait), by statement (with its callers)."""
+    def merge(d, key, v):
+        n, ms, top = d.get(key, (0, 0.0, 0.0))
+        d[key] = (n + v["calls"], ms + v["ms"], max(top, v["max_ms"]))
+
+    by_caller, by_sql, pairs, waits = {}, {}, {}, {}
+    for k, v in split.items():
+        parts = k.split("\t")
+        if parts[0] == "hold":
+            merge(by_caller, parts[1], v)
+            merge(by_sql, parts[2], v)
+            merge(pairs, (parts[2], parts[1]), v)
+        elif parts[0] == "wait":
+            merge(waits, parts[1], v)
+
+    def ranked(d):
+        return [dict(key=k, calls=n, ms=ms, max_ms=top) for k, (n, ms, top)
+                in sorted(d.items(), key=lambda kv: -kv[1][1])]
+
+    callers = ranked(by_caller)
+    for row in callers:
+        n, ms, top = waits.get(row["key"], (0, 0.0, 0.0))
+        row.update(wait_ms=ms, wait_max_ms=top)
+    statements = ranked(by_sql)
+    for row in statements:
+        row["callers"] = [
+            dict(key=c, calls=n, ms=ms, max_ms=top)
+            for (s, c), (n, ms, top) in sorted(
+                pairs.items(), key=lambda kv: -kv[1][1]) if s == row["key"]]
+    return dict(callers=callers, statements=statements)
+
+
 def _print_split(label, split, rows):
-    """Two lines: the split's figures, then the lock's time held by
-    statement, the 8 longest."""
+    """Three lines: the split's figures; the lock's time held by caller
+    (the 10 longest, each with its wait); held by statement (the 6
+    longest, each with its 3 longest callers)."""
     def fmt(k, v):
         return (f"{k} {v['calls']} calls {v['ms']:.1f} ms "
                 f"(max {v['max_ms']:.1f})")
 
     print(f"server-side split, {label} ({rows} fleet_metric rows): "
-          + ", ".join(fmt(k, v) for k, v in split.items()
-                      if not k.startswith("held_by")))
-    held = sorted(((k, v) for k, v in split.items()
-                   if k.startswith("held_by")), key=lambda kv: -kv[1]["ms"])
-    print(f"server-side split, {label}, lock held by: "
-          + "; ".join(fmt(k.removeprefix("held_by "), v)
-                      for k, v in held[:8]))
+          + ", ".join(fmt(k, v) for k, v in split.items() if "\t" not in k))
+    holders = _split_holders(split)
+    print(f"server-side split, {label}, lock held by caller: " + "; ".join(
+        fmt(r["key"], r) + f" waited {r['wait_ms']:.1f} ms"
+        for r in holders["callers"][:10]))
+    print(f"server-side split, {label}, lock held by statement: "
+          + "; ".join(fmt(r["key"], r) + " [" + ", ".join(
+              f"{c['key']} {c['ms']:.1f}" for c in r["callers"][:3]) + "]"
+              for r in holders["statements"][:6]))
+    return holders
+
+
+def _push_clock(pushes, t0, span):
+    """One thread a push: the k-th of ``pushes`` (callables) fires at
+    ``t0 + (k + 0.5) span / len(pushes)`` on the perf clock. Returns the
+    started threads and the list they append (k, seconds after t0, ok)
+    to."""
+    import threading
+
+    done = []
+
+    def fire(k, push):
+        time.sleep(max(0.0, t0 + (k + 0.5) * span / len(pushes)
+                       - time.perf_counter()))
+        at = time.perf_counter() - t0
+        done.append((k, at, bool(push())))
+
+    threads = [threading.Thread(target=fire, args=(k, p), daemon=True,
+                                name=f"push clock {k}")
+               for k, p in enumerate(pushes)]
+    for th in threads:
+        th.start()
+    return threads, done
+
+
+def _fanout(c, collab, orgs, split, label, at_submit=None):
+    """One ``central_average`` fan-out through node A, with the server's
+    split over it (from submit to result) printed before its hops;
+    ``at_submit`` is called once the split's window is open, just before
+    the submit. Returns (the result, its record)."""
+    rows_before = split.rows()
+    split.window()
+    if at_submit is not None:
+        at_submit()
+    t0 = time.perf_counter()
+    task = c.task.create(collaboration=collab["id"],
+                         organizations=[orgs[0]["id"]],
+                         image="v6-average-py",
+                         input_={"method": "central_average",
+                                 "kwargs": {"column": "f0"}})
+    (out,) = c.wait_for_results(task["id"], interval=0.01, timeout=300)
+    end = time.time()
+    ms = 1e3 * (time.perf_counter() - t0)
+    window = split.window()
+    rows_after = split.rows()
+    holders = _print_split(label, window, rows_after)
+    subtasks = [t for t in c.task.list()
+                if (t.get("parent") or {}).get("id") == task["id"]]
+    hops = _fanout_hops(c, task["id"], subtasks, end - ms / 1e3, end, label)
+    pushes = window.get("ingest_insert", {}).get("calls", 0)
+    print(f"central fan-out, {label}: {ms:.1f} ms, {pushes} pushes "
+          f"ingested, fleet_metric rows {rows_before} -> {rows_after}")
+    return out, dict(ms=ms, pushes=pushes, rows_before=rows_before,
+                     rows_after=rows_after, server_split=window,
+                     holders=holders, hops_ms=hops, subtasks=len(subtasks))
 
 
 def _cp_fanout(torch, dev, stack, tmp):
     """(c) ``central_average`` over phase 12's registry behind 32 inline
-    daemons (researcher -> node A -> proxy -> 32 subtasks), against the
-    in-process Federation and numpy. The server's own split (its fleet
-    store and its database lock, ``_ServerSplit``) is printed for the
-    daemons' start and for the fan-out, before the hops."""
+    daemons pushing fleet telemetry at the default 15 s (researcher ->
+    node A -> proxy -> 32 subtasks), twice: quiet, before any daemon's
+    first push is due, then loaded, with the server's own snapshot and
+    each daemon's push fired once, evenly over the first half of the
+    quiet fan-out's length; each against the in-process Federation and
+    numpy. The
+    server's own split (its fleet store and its database lock by caller
+    and statement, ``_ServerSplit``) is printed for the daemons' start and
+    for each fan-out, before its hops."""
     import pandas as pd
 
     from vantage6_tpu_torch.runtime.federation import federation_from_datasets
@@ -6159,40 +6294,56 @@ def _cp_fanout(torch, dev, stack, tmp):
         path = os.path.join(tmp, f"registry{i:02d}.csv")
         pd.DataFrame({"f0": a}).to_csv(path, index=False)
         csvs.append(path)
-    split = _ServerSplit(stack.srv)
+    srv, c = stack.srv, stack.client
+    split = _ServerSplit(srv)
     try:
         t0 = time.perf_counter()
+        # the daemons' default push interval (no fleet_push_interval)
         collab, orgs, daemons = stack.collaboration(
             "registry", csvs,
             {"v6-average-py": "vantage6_tpu_torch.workloads.average"},
-            poll_interval=0.05,
-            fleet_push_interval=CONTROL["fleet_push_interval"])
+            poll_interval=0.05)
         start_s = time.perf_counter() - t0
-        server = {"start": split.window()}
-        rows = {"start": split.rows()}
-        split.window()
-        c = stack.client
-        t0 = time.perf_counter()
-        task = c.task.create(collaboration=collab["id"],
-                             organizations=[orgs[0]["id"]],
-                             image="v6-average-py",
-                             input_={"method": "central_average",
-                                     "kwargs": {"column": "f0"}})
-        (rest_out,) = c.wait_for_results(task["id"], interval=0.01,
-                                         timeout=300)
-        rest_end = time.time()
-        rest_ms = 1e3 * (time.perf_counter() - t0)
-        server["fanout"] = split.window()
-        rows["fanout"] = split.rows()
+        start = split.window()
+        start_holders = _print_split("daemons' start", start, split.rows())
+        quiet_out, quiet = _fanout(c, collab, orgs, split, "quiet")
+
+        def server_tick():
+            # the server's own snapshot: its watchdog tick, made due
+            srv._fleet_last_push = 0.0
+            srv.watchdog.evaluate()
+            return True
+
+        clock = []
+
+        def start_clock():
+            # over the first half of the quiet fan-out's length: every
+            # push lands inside a loaded fan-out up to twice as fast as
+            # the quiet one
+            clock.extend(_push_clock(
+                [server_tick] + [d.fleet.push for d in daemons],
+                time.perf_counter(), quiet["ms"] / 2e3))
+
+        loaded_out, loaded = _fanout(c, collab, orgs, split, "loaded",
+                                     at_submit=start_clock)
+        threads, fired = clock
+        for th in threads:
+            th.join()
+        loaded["fired"] = sorted(fired)
+        health = c.util.health()["status"]
+        pushed = {s["source"] for s in c.request("GET", "fleet")["sources"]}
     finally:
         split.close()
-    for label in ("start", "fanout"):
-        _print_split("daemons' start" if label == "start"
-                     else "submit -> result", server[label], rows[label])
-    subtasks = [t for t in c.task.list()
-                if (t.get("parent") or {}).get("id") == task["id"]]
-    hops = _fanout_hops(c, task["id"], subtasks, rest_end - rest_ms / 1e3,
-                        rest_end)
+    late = sum(1 for _, at, _ in fired if 1e3 * at > loaded["ms"])
+    loaded.update(health=health, pushes_fired=len(fired),
+                  pushes_accepted=sum(ok for *_, ok in fired),
+                  fired_after_result=late)
+    read_back = {d.name: f"daemon:{d.name}" in pushed for d in daemons}
+    print(f"central fan-out, loaded: {len(fired)} pushes fired over "
+          f"{quiet['ms'] / 2:.1f} ms ({loaded['pushes_accepted']} accepted, "
+          f"{late} after the result), health {health}, "
+          f"{sum(read_back.values())} of {len(daemons)} daemons read back "
+          f"from /api/fleet")
     stack.stop_daemons(daemons)
 
     fed = federation_from_datasets(
@@ -6208,29 +6359,38 @@ def _cp_fanout(torch, dev, stack, tmp):
     finally:
         fed.close()
     pooled = np.concatenate(f0)
-    rel_fed = abs(rest_out["average"] - fed_out["average"]) \
-        / abs(fed_out["average"])
-    rel_np = abs(rest_out["average"] - pooled.mean()) / abs(pooled.mean())
     res = dict(stations=len(f0), patients=int(counts.sum()),
-               daemons_start_s=start_s, rest_ms=rest_ms, hops_ms=hops,
-               server_split=server, fleet_rows=rows,
-               federation_ms=fed_ms,
-               rest=rest_out, federation=fed_out, numpy=float(pooled.mean()),
-               rel_err_vs_federation=rel_fed, rel_err_vs_numpy=rel_np,
-               subtasks=len(subtasks))
-    print(f"central fan-out: {len(f0)} daemons ({start_s:.1f} s to start) "
-          f"over {res['patients']} patients: REST {rest_ms:.1f} ms, "
-          f"in-process Federation {fed_ms:.1f} ms; average "
-          f"{rest_out['average']!r} vs Federation {fed_out['average']!r} "
-          f"(rel {rel_fed:.3e}), numpy {pooled.mean()!r} (rel "
-          f"{rel_np:.3e}); {len(subtasks)} subtask(s)")
-    check(rest_out["count"] == fed_out["count"] == pooled.size,
-          f"fan-out counts {rest_out['count']}, {fed_out['count']} != "
-          f"{pooled.size}")
-    check(rel_fed <= FANOUT_FED_RTOL,
-          f"REST average off the Federation's: {rel_fed:.3e}")
-    check(rel_np <= FANOUT_NUMPY_RTOL,
-          f"REST average off numpy's: {rel_np:.3e}")
+               daemons_start_s=start_s, rest_ms=quiet["ms"],
+               server_split={"start": start}, start_holders=start_holders,
+               quiet=quiet, loaded=loaded, federation_ms=fed_ms,
+               federation=fed_out, numpy=float(pooled.mean()),
+               daemons_read_back=read_back)
+    for label, out in (("quiet", quiet_out), ("loaded", loaded_out)):
+        rel_fed = abs(out["average"] - fed_out["average"]) \
+            / abs(fed_out["average"])
+        rel_np = abs(out["average"] - pooled.mean()) / abs(pooled.mean())
+        res[label].update(rest=out, rel_err_vs_federation=rel_fed,
+                          rel_err_vs_numpy=rel_np)
+        print(f"central fan-out, {label}: {len(f0)} daemons "
+              f"({start_s:.1f} s to start) over {res['patients']} "
+              f"patients: REST {res[label]['ms']:.1f} ms, in-process "
+              f"Federation {fed_ms:.1f} ms; average {out['average']!r} vs "
+              f"Federation {fed_out['average']!r} (rel {rel_fed:.3e}), "
+              f"numpy {pooled.mean()!r} (rel {rel_np:.3e}); "
+              f"{res[label]['subtasks']} subtask(s)")
+        check(out["count"] == fed_out["count"] == pooled.size,
+              f"{label} fan-out counts {out['count']}, {fed_out['count']} "
+              f"!= {pooled.size}")
+        check(rel_fed <= FANOUT_FED_RTOL,
+              f"{label} REST average off the Federation's: {rel_fed:.3e}")
+        check(rel_np <= FANOUT_NUMPY_RTOL,
+              f"{label} REST average off numpy's: {rel_np:.3e}")
+    check(loaded["pushes"] >= len(daemons) + 1,
+          f"{loaded['pushes']} pushes ingested during the loaded fan-out, "
+          f"fewer than its {len(daemons)} daemons and the server")
+    check(health == "ok", f"server health {health} after the loaded fan-out")
+    check(all(read_back.values()),
+          f"daemons not read back from /api/fleet: {read_back}")
     return res
 
 
@@ -7053,8 +7213,10 @@ def main(argv: list[str]) -> int:
           + ", ".join(f"{k} {v['rest_ms']:.1f} ms (direct "
                       f"{v['direct_ms']:.3f})" for k, v in cd.items()
                       if k != "profile")
-          + f"; fan-out over {cf['stations']} daemons {cf['rest_ms']:.1f} ms "
-          f"(Federation {cf['federation_ms']:.1f}); sandboxed run "
+          + f"; fan-out over {cf['stations']} daemons quiet "
+          f"{cf['quiet']['ms']:.1f} ms, loaded {cf['loaded']['ms']:.1f} ms "
+          f"with {cf['loaded']['pushes']} pushes (Federation "
+          f"{cf['federation_ms']:.1f}); sandboxed run "
           f"{control['sandbox']['wall_ms']:.1f} ms; phase "
           f"{control['seconds']:.1f} s on {card}")
     if "not_run" not in cli:

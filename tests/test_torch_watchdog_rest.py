@@ -22,6 +22,10 @@ from vantage6_tpu_torch.server.app import ServerApp
 def srv():
     TRACER.configure(enabled=True, sample=1.0, sink=None)
     TRACER.clear()
+    # a dump carries the flight recorder's notes: alerts that EARLIER test
+    # modules raised (their own watchdogs) must not stand in this
+    # server's digest
+    FLIGHT.clear()
     # the singleton watchdog reads the process-global learning registry
     # (registered feed): histories recorded by EARLIER test modules'
     # aggregations must not leak alerts into this server's verdict

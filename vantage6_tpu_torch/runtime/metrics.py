@@ -6,8 +6,7 @@ structured layer the BASELINE methodology needs: JSONL round metrics
 traces (Chrome trace JSON, viewable in Perfetto) around chosen rounds.
 
 Counterpart of ``vantage6_tpu/runtime/metrics.py``: device memory comes
-from ``torch.cuda`` per visible card. The REST snapshot waits for the
-port's ``common/rest.py``.
+from ``torch.cuda`` per visible card.
 """
 from __future__ import annotations
 
@@ -209,6 +208,16 @@ def wire_stats_snapshot() -> dict[str, Any]:
     from vantage6_tpu_torch.common.serialization import WIRE_STATS
 
     return WIRE_STATS.snapshot()
+
+
+def rest_stats_snapshot() -> dict[str, Any]:
+    """Process-wide REST transport counters (calls, request/response
+    bytes, seconds, stale-socket retries) from `common.rest.REST_STATS`.
+    Diff two snapshots to scope to one round/bench arm — the control_plane
+    leg reports calls-per-task from exactly this."""
+    from vantage6_tpu_torch.common.rest import REST_STATS
+
+    return REST_STATS.snapshot()
 
 
 def learning_snapshot() -> list[dict[str, Any]]:

@@ -118,6 +118,33 @@ class Database:
                 return self.conn.execute(sql, tuple(params)).fetchall()
         return self.conn.execute(sql, tuple(params)).fetchall()
 
+    def execute_batch(
+        self, statements: Iterable[tuple[str, Iterable[Any]]]
+    ) -> None:
+        """Run ``(sql, params)`` statements as ONE transaction: one commit
+        and, in memory mode, one hold of the shared connection's lock, so
+        a multi-statement write (a fleet push) pays neither a commit nor a
+        lock round per statement. A failing statement rolls the whole
+        batch back."""
+        statements = [(sql, tuple(params)) for sql, params in statements]
+        if not statements:
+            return
+        if self._memory_conn is not None:
+            with self._memory_lock:
+                self._run_batch(statements)
+            return
+        self._run_batch(statements)
+
+    def _run_batch(self, statements: list[tuple[str, tuple]]) -> None:
+        conn = self.conn
+        try:
+            for sql, params in statements:
+                conn.execute(sql, params)
+        except BaseException:
+            conn.rollback()
+            raise
+        conn.commit()
+
     def close(self) -> None:
         if self._memory_conn is not None:
             self._memory_conn.close()
@@ -179,6 +206,14 @@ class WalDatabase(Database):
     def query(self, sql: str, params: Iterable[Any] = ()) -> list[sqlite3.Row]:
         params = tuple(params)
         return self._retry(lambda: Database.query(self, sql, params))
+
+    def execute_batch(
+        self, statements: Iterable[tuple[str, Iterable[Any]]]
+    ) -> None:
+        # a busy collision rolls the batch back, so the retry re-issues
+        # all of it
+        statements = [(sql, tuple(params)) for sql, params in statements]
+        self._retry(lambda: Database.execute_batch(self, statements))
 
 
 # scheme -> backend class; `open_backend` dispatches on the URI scheme so a

@@ -52,6 +52,21 @@ _INGESTS = 0
 _ROWS_PER_INSERT = 120
 
 
+def _insert_chunks(
+    table: str, columns: str, rows: list[tuple]
+) -> list[tuple[str, list[Any]]]:
+    """Multi-row ``INSERT``s of at most ``_ROWS_PER_INSERT`` rows each."""
+    width = len(rows[0]) if rows else 0
+    values = "(" + ", ".join(["?"] * width) + ")"
+    return [
+        (f"INSERT INTO {table} ({columns}) VALUES "
+         + ", ".join([values] * len(chunk)),
+         [v for row in chunk for v in row])
+        for chunk in (rows[i:i + _ROWS_PER_INSERT]
+                      for i in range(0, len(rows), _ROWS_PER_INSERT))
+    ]
+
+
 def ingest(db: Any, payload: dict[str, Any]) -> dict[str, int]:
     """Append one decoded push payload (see `common.fleet.build_snapshot`)
     to the store. CAS-free: rows are only ever inserted, never updated —
@@ -77,28 +92,23 @@ def ingest(db: Any, payload: dict[str, Any]) -> dict[str, int]:
         for name, value in metrics.items()
         if isinstance(value, (int, float)) and not isinstance(value, bool)
     ]
-    for i in range(0, len(rows), _ROWS_PER_INSERT):
-        chunk = rows[i:i + _ROWS_PER_INSERT]
-        sql = (
-            "INSERT INTO fleet_metric "
-            "(source, service, seq, name, kind, value, ts) VALUES "
-            + ", ".join(["(?, ?, ?, ?, ?, ?, ?)"] * len(chunk))
-        )
-        db.execute(sql, [v for row in chunk for v in row])
-
-    events = 0
-    for note in payload.get("notes") or []:
-        if not isinstance(note, dict) or not note.get("kind"):
-            continue
-        db.execute(
-            "INSERT INTO fleet_event (source, service, kind, ts, data) "
-            "VALUES (?, ?, ?, ?, ?)",
-            [source, service, str(note["kind"]),
-             float(note.get("ts") or ts),
-             json.dumps({k: v for k, v in note.items()
-                         if k not in ("kind", "ts")}, default=str)],
-        )
-        events += 1
+    notes = [
+        (source, service, str(note["kind"]), float(note.get("ts") or ts),
+         json.dumps({k: v for k, v in note.items()
+                     if k not in ("kind", "ts")}, default=str))
+        for note in payload.get("notes") or []
+        if isinstance(note, dict) and note.get("kind")
+    ]
+    # the whole push is one transaction: one commit, and in memory mode
+    # one hold of the store's lock, however many chunks and notes it has
+    # (multi-row inserts number their rows in order, as single ones do)
+    db.execute_batch(
+        _insert_chunks("fleet_metric",
+                       "source, service, seq, name, kind, value, ts", rows)
+        + _insert_chunks("fleet_event", "source, service, kind, ts, data",
+                         notes)
+    )
+    events = len(notes)
 
     REGISTRY.counter("v6t_fleet_ingests_total").inc()
     REGISTRY.counter("v6t_fleet_ingest_rows_total").inc(len(rows))

@@ -316,12 +316,32 @@ class Task(Model):
     def runs(self) -> list["TaskRun"]:
         return TaskRun.list(task_id=self.id)
 
+    def _run_rollup(self) -> tuple[list[int], set[str]]:
+        """The task's run ids (ascending) and their distinct statuses
+        (a NULL status as ""), read as ONE row: under the in-memory
+        store's lock a query pays a GIL round trip for every row it steps,
+        so the rollup never fetches the runs themselves."""
+        (row,) = self._db().query(
+            "SELECT group_concat(id) AS ids, "
+            "group_concat(DISTINCT ifnull(status, '')) AS statuses "
+            f"FROM {TaskRun.TABLE} WHERE task_id = ?",
+            [self.id],
+        )
+        if row["ids"] is None:
+            return [], set()
+        return (
+            sorted(int(i) for i in row["ids"].split(",")),
+            set(row["statuses"].split(",")),
+        )
+
     def status(self) -> str:
         """Aggregate status rollup over runs (same order as the runtime)."""
-        runs = self.runs()
-        if not runs:
+        return self._status_of(self._run_rollup()[1])
+
+    @staticmethod
+    def _status_of(statuses: set[str]) -> str:
+        if not statuses:
             return TaskStatus.PENDING.value
-        statuses = {r.status for r in runs}
         for bad in (
             TaskStatus.KILLED,
             TaskStatus.NOT_ALLOWED,
@@ -341,13 +361,14 @@ class Task(Model):
         return TaskStatus.PENDING.value
 
     def to_dict(self) -> dict[str, Any]:
+        run_ids, statuses = self._run_rollup()
         return {
             "id": self.id,
             "name": self.name,
             "description": self.description,
             "image": self.image,
             "method": self.method,
-            "status": self.status(),
+            "status": self._status_of(statuses),
             "collaboration": {"id": self.collaboration_id},
             "study": {"id": self.study_id} if self.study_id else None,
             "parent": {"id": self.parent_id} if self.parent_id else None,
@@ -360,7 +381,7 @@ class Task(Model):
             "engine": self.engine or "process",
             "trace_id": self.trace_id or None,
             "traceparent": self.traceparent or None,
-            "runs": [r.id for r in self.runs()],
+            "runs": run_ids,
         }
 
 
