@@ -3,7 +3,6 @@ executor pool, metrics, telemetry and tracing, checkpoints, guards, data
 loading and the algorithm decorators, each beside the JAX package's where
 the two can run the same inputs."""
 import importlib
-import json
 import threading
 import time
 
@@ -190,22 +189,6 @@ def test_device_memory_without_cuda(monkeypatch):
     assert tmet.device_memory_all() == []
     assert tmet.device_peak_bytes() is None
     assert tmet.device_peak_bytes("cpu") is None
-
-
-def test_profile_trace_writes_a_chrome_trace_under_a_span(tmp_path):
-    TRACER.clear()
-    with TRACER.span("test.round", kind="client", service="test"):
-        with tmet.profile_trace(tmp_path / "prof"):
-            torch.ones(64).sum()
-        with tmet.profile_trace(tmp_path / "off", enabled=False):
-            pass
-    traces = list((tmp_path / "prof").glob("*.json"))
-    assert len(traces) == 1
-    assert "traceEvents" in json.loads(traces[0].read_text())
-    assert not (tmp_path / "off").exists()
-    spans = {s["name"]: s for s in TRACER.drain()}
-    assert spans["device.profile"]["attrs"]["log_dir"] == str(tmp_path / "prof")
-    assert spans["device.profile"]["parent_id"] == spans["test.round"]["span_id"]
 
 
 # ------------------------------------------------------ telemetry, tracing

@@ -38,7 +38,13 @@ The host hooks follow the JAX package: ``round``, ``run_rounds`` and
 round is a ``device.compile`` event of the engine's ``CaptureCache``, the
 compressed uplink and the fused dispatches are counted in the
 ``v6t_compress_*``/``v6t_fused_*`` series, and ``attach_history`` records
-every round's stats into a ``runtime.learning.RoundHistory``.
+every round's stats into a ``runtime.learning.RoundHistory``. A round's
+parts are named for the profiler (``runtime.tracing.phase``):
+``fed.local_train``, ``fed.compress``, ``fed.stats``, ``fed.aggregate``
+and ``server.update``, and the fused dispatch's host work
+``fedavg.dispatch`` around ``fedavg.inputs``, ``fedavg.capture`` and
+``fedavg.replay``; inside a captured round the phases are timing events
+in the graph, read after the replays that ran under a profiler.
 Observability never fails a round: a recording error is logged at debug
 level; the stats' pull to the host is the round's own, so a device error
 there propagates.
@@ -109,6 +115,8 @@ from vantage6_tpu_torch.fed.compression import (
 )
 from vantage6_tpu_torch.optim import apply_updates, sgd
 from vantage6_tpu_torch.runtime.profiling import CaptureCache, observed_jit
+from vantage6_tpu_torch.runtime.tracing import (PHASES, CapturedPhases,
+                                                phase)
 
 Pytree = Any
 # loss_fn(params, batch_x, batch_y, example_weights) -> scalar mean loss
@@ -285,10 +293,11 @@ class FedAvg:
         idx: torch.Tensor,        # [S, local_steps, batch]
         noise: torch.Tensor | None = None,  # [S, n_pad] int8 rounding draws
     ):
-        deltas, losses = self.mesh.fed_map(
-            self._local_update, stacked_x, stacked_y, idx,
-            replicated_args=(params,), batched=True,
-        )
+        with phase("fed.local_train"):
+            deltas, losses = self.mesh.fed_map(
+                self._local_update, stacked_x, stacked_y, idx,
+                replicated_args=(params,), batched=True,
+            )
         weights = counts * mask
         # the aggregation consumes the decompressed deltas, what a server
         # reconstructs from each station's compressed uplink
@@ -299,33 +308,41 @@ class FedAvg:
         mesh = None if whole else self.mesh
         if self._compressing:
             server_state = opt_state["server"]
-            deltas, ef, flat = self._compress_deltas(deltas, opt_state["ef"],
-                                                     noise, mask)
-            if whole:
-                losses = all_gather_rows(self.mesh, losses)
+            with phase("fed.compress"):
+                deltas, ef, flat = self._compress_deltas(
+                    deltas, opt_state["ef"], noise, mask)
+                if whole:
+                    losses = all_gather_rows(self.mesh, losses)
         else:
             server_state = opt_state
         stats: dict[str, Any] = {}
         if self.spec.learning_stats:
-            if flat is None:
-                flat = flatten_stacked(deltas)
-            stats = station_update_stats(flat, weights=weights,
-                                         ef=None if whole else ef, mesh=mesh)
-            if whole:  # each rank's EF rows, gathered
-                stats["station_ef_norm"] = all_gather_rows(self.mesh,
-                                                           row_norms(ef))
-        if self.spec.shard_server_update:
-            params, server_state = self._sharded_server_update(
-                params, server_state, deltas, weights, whole=whole)
-        else:
-            mean_delta = fed_mean(deltas, weights=weights, mesh=mesh)
-            # server update on the pseudo-gradient (negative mean delta)
-            pseudo_grad = tree_map(torch.neg, mean_delta)
-            updates, server_state = self.server_opt.update(
-                pseudo_grad, server_state, params
-            )
-            params = apply_updates(params, updates)
-        round_loss = fed_mean(losses, weights=weights, mesh=mesh)
+            with phase("fed.stats"):
+                if flat is None:
+                    flat = flatten_stacked(deltas)
+                stats = station_update_stats(flat, weights=weights,
+                                             ef=None if whole else ef,
+                                             mesh=mesh)
+                if whole:  # each rank's EF rows, gathered
+                    stats["station_ef_norm"] = all_gather_rows(
+                        self.mesh, row_norms(ef))
+        # the server steps on the pseudo-gradient, the negative mean delta
+        # (this slot's shard of it, sharded)
+        with phase("fed.aggregate"):
+            if self.spec.shard_server_update:
+                pseudo_grad = self._sharded_mean(deltas, weights, whole)
+            else:
+                pseudo_grad = tree_map(
+                    torch.neg, fed_mean(deltas, weights=weights, mesh=mesh))
+            round_loss = fed_mean(losses, weights=weights, mesh=mesh)
+        with phase("server.update"):
+            if self.spec.shard_server_update:
+                params, server_state = self._sharded_server_step(
+                    params, server_state, pseudo_grad)
+            else:
+                updates, server_state = self.server_opt.update(
+                    pseudo_grad, server_state, params)
+                params = apply_updates(params, updates)
         new_state = ({"server": server_state, "ef": ef} if self._compressing
                      else server_state)
         return params, new_state, round_loss, stats
@@ -361,26 +378,32 @@ class FedAvg:
             hat = decompress_flat(spec, payload, hat.shape[-1])
         return unflatten_stacked(template, hat), new_ef, hat
 
-    def _sharded_server_update(
-        self, params: Pytree, opt_state: Any, deltas: Pytree,
-        weights: torch.Tensor, whole: bool = False,
-    ) -> tuple[Pytree, Any]:
-        """Reduce-scatter -> shard-local update -> all-gather: the server
-        optimizer steps this slot's shard of the flat padded f32 param
-        vector (the whole vector on one card). With ``whole`` (every
-        station's delta on every rank) the mean is the one-process one,
-        cut to this slot's shard."""
+    # ZeRO-1 server update: reduce-scatter (``_sharded_mean``), then the
+    # shard-local update and the all-gather (``_sharded_server_step``): the
+    # server optimizer steps this slot's shard of the flat padded f32 param
+    # vector (the whole vector on one card)
+    def _sharded_mean(self, deltas: Pytree, weights: torch.Tensor,
+                      whole: bool = False) -> torch.Tensor:
+        """This slot's shard of the pseudo-gradient, the negative mean
+        delta, reduce-scattered. With ``whole`` (every station's delta on
+        every rank) the mean is the one-process one, cut to this slot's
+        shard."""
         mesh = self.mesh
         if whole:
-            grad = -self._shard(fed_mean_scattered(
+            return -self._shard(fed_mean_scattered(
                 FederationMesh(mesh.n_stations, device=mesh.device), deltas,
                 weights=weights, comm_dtype=self.spec.comm_dtype))
-        else:
-            grad = -fed_mean_scattered(mesh, deltas, weights=weights,
-                                       comm_dtype=self.spec.comm_dtype)
+        return -fed_mean_scattered(mesh, deltas, weights=weights,
+                                   comm_dtype=self.spec.comm_dtype)
+
+    def _sharded_server_step(self, params: Pytree, opt_state: Any,
+                             grad: torch.Tensor) -> tuple[Pytree, Any]:
+        """The server optimizer on this slot's shard, and the new params
+        all-gathered."""
         shard = self._param_shard(params)
         updates, opt_state = self.server_opt.update(grad, opt_state, shard)
-        new_flat = all_gather_stations(mesh, apply_updates(shard, updates))
+        new_flat = all_gather_stations(self.mesh,
+                                       apply_updates(shard, updates))
         return unflatten_like(params, new_flat), opt_state
 
     def _param_shard(self, params: Pytree) -> torch.Tensor:
@@ -704,18 +727,21 @@ class FedAvg:
         no effect: the inputs are copied into the graph's own buffers and
         never consumed, and the round is replayed, not unrolled."""
         del donate, unroll
-        self._record_fused(n_rounds)
-        out = self._run(params, stacked_x, stacked_y, counts, key, mask,
-                        opt_state, batch_idx, noise, n_rounds=n_rounds)
-        self._record_history(out[2], out[3], rounds_per_dispatch=n_rounds)
+        with phase("fedavg.dispatch"):
+            self._record_fused(n_rounds)
+            out = self._run(params, stacked_x, stacked_y, counts, key, mask,
+                            opt_state, batch_idx, noise, n_rounds=n_rounds)
+            self._record_history(out[2], out[3],
+                                 rounds_per_dispatch=n_rounds)
         return out
 
     def _run_rounds_call(self, params, stacked_x, stacked_y, counts, key,
                          mask, opt_state, batch_idx, noise, *, n_rounds):
         counts = self._place(counts, torch.float32)
-        carry, row = self._fused_inputs(
-            params, opt_state, counts, key, batch_idx, noise, n_rounds,
-            mask=torch.ones_like(counts) if mask is None else mask)
+        with phase("fedavg.inputs"):
+            carry, row = self._fused_inputs(
+                params, opt_state, counts, key, batch_idx, noise, n_rounds,
+                mask=torch.ones_like(counts) if mask is None else mask)
         carry, losses, stats = self._run_fused(
             carry, dict(x=stacked_x, y=stacked_y, counts=counts), row,
             n_rounds)
@@ -746,12 +772,14 @@ class FedAvg:
         opt_state, staleness[S], losses[n], stats)."""
         del donate
         spec.validate()
-        self._record_fused(n_rounds)
-        out = self._run_async(params, stacked_x, stacked_y, counts, key,
-                              accept_masks, spec.staleness_discount,
-                              staleness, mask, opt_state, batch_idx, noise,
-                              n_rounds=n_rounds)
-        self._record_history(out[3], out[4], rounds_per_dispatch=n_rounds)
+        with phase("fedavg.dispatch"):
+            self._record_fused(n_rounds)
+            out = self._run_async(params, stacked_x, stacked_y, counts, key,
+                                  accept_masks, spec.staleness_discount,
+                                  staleness, mask, opt_state, batch_idx,
+                                  noise, n_rounds=n_rounds)
+            self._record_history(out[3], out[4],
+                                 rounds_per_dispatch=n_rounds)
         return out
 
     def _run_rounds_async_call(self, params, stacked_x, stacked_y, counts,
@@ -759,10 +787,11 @@ class FedAvg:
                                staleness, mask, opt_state, batch_idx, noise,
                                *, n_rounds):
         counts = self._place(counts, torch.float32)
-        carry, row = self._fused_inputs(
-            params, opt_state, counts, key, batch_idx, noise, n_rounds,
-            mask=torch.ones_like(counts) if mask is None else mask,
-            accept=accept_masks)
+        with phase("fedavg.inputs"):
+            carry, row = self._fused_inputs(
+                params, opt_state, counts, key, batch_idx, noise, n_rounds,
+                mask=torch.ones_like(counts) if mask is None else mask,
+                accept=accept_masks)
         carry["staleness"] = (torch.zeros_like(counts) if staleness is None
                               else self._place(staleness, torch.float32))
         discount = torch.tensor(staleness_discount, dtype=torch.float32,
@@ -814,13 +843,15 @@ class FedAvg:
                     if group is not None:
                         dist.all_reduce(torch.zeros(1, device=self.device),
                                         group=group)
-            fused = self._fused.build(
-                key, lambda: _FusedRound(self._round_step, inputs, form),
-                device=self.device)
+            with phase("fedavg.capture"):
+                fused = self._fused.build(
+                    key, lambda: _FusedRound(self._round_step, inputs, form),
+                    device=self.device)
             if fused.seconds is not None:
                 self.last_capture = fused.seconds
-        return fused.run(self._round_step, inputs, row, list(carry),
-                         n_rounds)
+        with phase("fedavg.replay"):
+            return fused.run(self._round_step, inputs, row, list(carry),
+                             n_rounds)
 
 
 def capture_form(device: torch.device, group: Any) -> str:
@@ -870,6 +901,9 @@ class _FusedRound:
         self.cuts: list[Callable[[], None]] = []
         self.outputs: Any = None
         self.seconds: dict[str, float] | None = None
+        # the round's phases as event pairs in its graphs, read after
+        # replays under a profiler
+        self.phases: CapturedPhases | None = None
         if form == "eager":
             return
         t0 = time.perf_counter()
@@ -885,12 +919,13 @@ class _FusedRound:
         gc_was_on = gc.isenabled()
         gc.disable()
         try:
-            if form == "graph":
-                self.graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self.graph):
-                    self.outputs = step(self.buffers)
-            else:
-                self.outputs = self._capture_segments(step)
+            with PHASES.capturing() as self.phases:
+                if form == "graph":
+                    self.graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(self.graph):
+                        self.outputs = step(self.buffers)
+                else:
+                    self.outputs = self._capture_segments(step)
         finally:
             if gc_was_on:
                 gc.enable()
@@ -934,14 +969,21 @@ class _FusedRound:
                 graph.reset()
         self.graph, self.segments, self.cuts = None, [], []
         self.buffers = self.outputs = None
+        if self.phases is not None:  # a traced replay not read yet
+            self.phases.collect()
+            self.phases = None
 
     def _replay(self) -> None:
+        # the last traced replay's phase times, before this one records
+        # its events again
+        self.phases.collect()
         if self.graph is not None:
             self.graph.replay()
         for i, graph in enumerate(self.segments):
             graph.replay()
             if i < len(self.cuts):
                 self.cuts[i]()
+        self.phases.replayed()
 
     def run(self, step: Callable, inputs: dict[str, Any],
             row: Callable[[int], dict[str, torch.Tensor]],

@@ -32,6 +32,7 @@ import math
 import torch
 
 from vantage6_tpu_torch.ops import _build
+from vantage6_tpu_torch.runtime.tracing import phase
 
 NEG_INF = -1e30
 M_FLOOR = -1e20
@@ -414,7 +415,7 @@ class _RecomputeVJP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_offset, k_offset, causal, scale, forward):
         # profiler ranges: device time of the round by module
-        with torch.profiler.record_function("attention_fwd"):
+        with phase("attention_fwd"):
             o = forward(q, k, v, q_offset, k_offset, causal, scale)
         ctx.save_for_backward(q, k, v, o)
         ctx.attrs = (q_offset, k_offset, causal, scale)
@@ -423,7 +424,7 @@ class _RecomputeVJP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        with torch.profiler.record_function("attention_bwd"):
+        with phase("attention_bwd"):
             dq, dk, dv = _attention_bwd(q, k, v, o, do, *ctx.attrs)
         return dq, dk, dv, None, None, None, None, None
 

@@ -1,9 +1,9 @@
-"""Structured per-round metrics + profiling hooks.
+"""Structured per-round metrics and device memory.
 
 The reference's observability is logs only (SURVEY.md §5); this adds the
 structured layer the BASELINE methodology needs: JSONL round metrics
-(rounds/sec, per-round step time, loss) and optional torch.profiler
-traces (Chrome trace JSON, viewable in Perfetto) around chosen rounds.
+(rounds/sec, per-round step time, loss). Profiler traces of chosen rounds
+are ``runtime.profiling.profile_window``'s.
 
 Counterpart of ``vantage6_tpu/runtime/metrics.py``: device memory comes
 from ``torch.cuda`` per visible card.
@@ -277,47 +277,6 @@ def _tolerant(obj: Any) -> Any:
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().tolist()
     return str(obj)
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str | Path, enabled: bool = True) -> Iterator[None]:
-    """torch.profiler trace of the block (CPU ops, and the card's kernels
-    when CUDA is available), written as a Chrome trace JSON into
-    ``log_dir`` (view in Perfetto or chrome://tracing).
-
-    Wrap a round or a run_rounds call; no-op when disabled so call sites can
-    leave it in place unconditionally.
-
-    When the caller is inside a distributed trace (runtime.tracing), the
-    profiler session is recorded as a `device.profile` span carrying the
-    log dir — the join point between a federated round's trace and its
-    kernel timeline (same trace_id on both sides).
-    """
-    if not enabled:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    from vantage6_tpu_torch.runtime.tracing import TRACER
-
-    log_dir = Path(log_dir)
-    log_dir.mkdir(parents=True, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with TRACER.span(
-        "device.profile", kind="device",
-        attrs={"log_dir": str(log_dir)}, require_parent=True,
-    ):
-        prof = profile(activities=activities)
-        prof.start()
-        try:
-            yield
-        finally:
-            prof.stop()
-            prof.export_chrome_trace(
-                str(log_dir / f"trace_{int(time.time() * 1e3)}.json")
-            )
 
 
 def read_jsonl(path: str | Path) -> list[dict[str, Any]]:

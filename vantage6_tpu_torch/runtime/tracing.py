@@ -17,21 +17,23 @@ latency went. This module is that attribution layer:
   becomes ONE trace across client, server and N daemons).
 - **Collection**: cheap and always-on — a bounded ring buffer per process
   plus an optional JSONL sink, with head sampling at trace roots
-  (`V6T_TRACE_SAMPLE`). Disabled entirely via `V6T_TRACE=0`; the
-  `observability` bench leg holds the enabled overhead under 5%.
+  (`V6T_TRACE_SAMPLE`). Disabled entirely via `V6T_TRACE=0`.
 - **Export**: `to_trace_events` renders spans as Chrome/Perfetto
   `trace_event` JSON (one pid lane per service) so a whole federated
   round — dispatch, long-poll wake, claim, exec, upload, aggregation —
   reads as one timeline; `summarize` is the per-hop p50/p95 table behind
   `tools/trace_view.py`.
 
-Device work links in through `runtime.metrics.profile_trace`, which
+Device work links in through `runtime.profiling.profile_window`, which
 records a `device.profile` span carrying the torch.profiler log dir, so a
 Chrome trace of the card's kernels is joinable to its federated trace by
-trace_id.
+trace_id. Inside that trace, `phase` names the parts of a training round
+(a station's forward and backward, compression, aggregation, the server
+step, the fused runner's dispatch) on the profiler's own clock; it costs
+nothing while no profiler is active (`RoundPhases`).
 
-The port's copy of ``vantage6_tpu/runtime/tracing.py``: framework-free,
-the same span names, propagation and export.
+The port's copy of ``vantage6_tpu/runtime/tracing.py``: the same span
+names, propagation and export; the round phases are the port's own.
 """
 from __future__ import annotations
 
@@ -43,8 +45,11 @@ import re
 import secrets
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Any, Iterator
+
+import torch
 
 from vantage6_tpu_torch.common.env import env_float, env_int
 
@@ -481,6 +486,150 @@ def current_trace_ids() -> tuple[str, str] | None:
     if ctx is None:
         return None
     return ctx.trace_id, ctx.span_id
+
+
+# ------------------------------------------------------------- round phases
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_PHASE = contextlib.nullcontext()
+# replays whose phase times the store keeps, the oldest dropped first
+PHASE_REPLAYS_KEPT = 4096
+
+
+class RoundPhases:
+    """The parts of a training round, named on the profiler's clock.
+
+    ``phase(name)`` marks one part of a round: a station's forward or
+    backward, compression, aggregation, the server step, the fused
+    runner's host work. What it does depends on who watches:
+
+    - no ``torch.profiler`` session active and no capture recording
+      phases on this thread: nothing (a guard call and an empty
+      ``with``, under a microsecond of host time);
+    - a profiler session active (``profiling.profile_window``, a traced
+      benchmark window): a ``record_function(name)`` range, in the same
+      Chrome trace and on the same clock as the kernels it launches;
+    - inside ``capturing()`` on the capturing thread (a fused round's CUDA
+      graph): a pair of timing events recorded into the graph around the
+      phase, once, into the ``CapturedPhases`` the capture yields. Every
+      replay runs them as graph nodes; the round reads them after the
+      replays made under a profiler (``CapturedPhases``) and keeps each
+      phase's milliseconds here, and ``drain`` hands them out.
+
+    The profiler's own state is the switch: no option or environment
+    variable turns any of this on or off.
+    """
+
+    def __init__(self):
+        self._capture = threading.local()  # .phases: this thread's capture
+        self._lock = threading.Lock()
+        # captured rounds whose last replay ran under a profiler, unread
+        self._unread: weakref.WeakSet[CapturedPhases] = weakref.WeakSet()
+        self._replays: deque[dict[str, float]] = deque(
+            maxlen=PHASE_REPLAYS_KEPT)
+        # traced replays not read since the last ``drain``: the next
+        # replay of their graph came before they had completed, so the
+        # times kept stand for only some of the traced replays
+        self.missed = 0
+
+    def phase(self, name: str):
+        """A context manager marking the phase ``name`` (see the class)."""
+        captured = getattr(self._capture, "phases", None)
+        if captured is None and not _profiler_enabled():
+            return _NO_PHASE
+        return _marked(name, captured)
+
+    @contextlib.contextmanager
+    def capturing(self) -> Iterator[CapturedPhases]:
+        """Record the phases entered on this thread, until the block ends,
+        as event pairs in the stream being captured; yields them."""
+        captured = CapturedPhases(self)
+        outer = getattr(self._capture, "phases", None)
+        self._capture.phases = captured
+        try:
+            yield captured
+        finally:
+            self._capture.phases = outer
+
+    def drain(self) -> list[dict[str, float]]:
+        """Each read replay's milliseconds by phase, oldest first, every
+        round's last traced replay included (waiting for it to complete);
+        empties the store and resets ``missed``."""
+        with self._lock:
+            unread = list(self._unread)
+            self._unread.clear()
+        for captured in unread:
+            captured.collect(wait=True)
+        with self._lock:
+            out = list(self._replays)
+            self._replays.clear()
+            self.missed = 0
+        return out
+
+
+class CapturedPhases:
+    """One captured round's phases: the ``(name, start, end)`` timing
+    event pairs recorded into its graph. The round calls ``collect``
+    before each replay and ``replayed`` after it. A replay made under a
+    profiler is read at the next ``collect`` if its events have completed
+    (a dispatch never waits for them; else the store counts it
+    ``missed``), or by ``RoundPhases.drain``, which waits."""
+
+    def __init__(self, store: RoundPhases):
+        self.marks: list[tuple[str, Any, Any]] = []
+        self._store = store
+        self._unread = False
+
+    def replayed(self) -> None:
+        """The graph was just replayed: kept to be read if a profiler is
+        active."""
+        if self.marks and _profiler_enabled():
+            store = self._store
+            with store._lock:
+                self._unread = True
+                store._unread.add(self)
+
+    def collect(self, wait: bool = False) -> None:
+        """Keep the last traced replay's milliseconds by phase, if it has
+        completed on the device (``wait``: once it has); else count it
+        missed."""
+        store = self._store
+        with store._lock:
+            unread, self._unread = self._unread, False
+        if not unread:
+            return
+        if wait:
+            for _, _, end in self.marks:
+                end.synchronize()
+        elif not all(end.query() for _, _, end in self.marks):
+            with store._lock:
+                store.missed += 1
+            return
+        times: dict[str, float] = {}
+        for name, start, end in self.marks:
+            times[name] = times.get(name, 0.0) + start.elapsed_time(end)
+        with store._lock:
+            store._replays.append(times)
+
+
+@contextlib.contextmanager
+def _marked(name: str, captured: CapturedPhases | None) -> Iterator[None]:
+    ranged = (torch.profiler.record_function(name) if _profiler_enabled()
+              else _NO_PHASE)
+    with ranged:
+        if captured is None:
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True, external=True)
+        start.record()
+        yield
+        end = torch.cuda.Event(enable_timing=True, external=True)
+        end.record()
+        captured.marks.append((name, start, end))
+
+
+PHASES = RoundPhases()
+phase = PHASES.phase
 
 
 # ------------------------------------------------------------------- export

@@ -31,6 +31,10 @@ positions by global offset, each shard's last position without a target
 (T - P predictions a sequence), and an aggregated gradient of P times the
 gradient of that loss (see ``FedTransformer.station_grads``).
 
+Under a profiler a round names its parts (``runtime.tracing.phase``):
+each station's ``fed.forward`` and ``fed.backward``, then
+``fed.aggregate`` and ``server.update``.
+
 Parameters keep the JAX layout (``qkv`` is ``[d, 3d]`` used as ``h @ W``),
 so ``params_from_jax``/``params_to_numpy`` move weights across without a
 transpose.
@@ -59,6 +63,7 @@ from vantage6_tpu_torch.parallel.ring_attention import (
     ring_attention,
     ring_attention_sharded,
 )
+from vantage6_tpu_torch.runtime.tracing import phase
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,17 +311,22 @@ class FedTransformer:
 
         def one_station(tok, params):
             leaves = tree_map(lambda x: x.detach().requires_grad_(), params)
-            if group is None:
-                loss = loss_local(leaves, tok, self.cfg, p)
-                # the reference's factor P, explicitly (see the docstring)
-                grads = torch.autograd.grad(p * loss, tree_leaves(leaves))
-            else:
-                loss = loss_local(leaves, tok, self.cfg, group=group)
-                grads = torch.autograd.grad(loss, tree_leaves(leaves))
-                flat = collectives.flatten_tree(list(grads))
-                dist.all_reduce(flat, group=group)
-                grads = tree_leaves(collectives.unflatten_like(
-                    list(grads), flat))
+            with phase("fed.forward"):
+                if group is None:
+                    loss = loss_local(leaves, tok, self.cfg, p)
+                else:
+                    loss = loss_local(leaves, tok, self.cfg, group=group)
+            with phase("fed.backward"):
+                if group is None:
+                    # the reference's factor P, explicitly (see the
+                    # docstring)
+                    grads = torch.autograd.grad(p * loss, tree_leaves(leaves))
+                else:
+                    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+                    flat = collectives.flatten_tree(list(grads))
+                    dist.all_reduce(flat, group=group)
+                    grads = tree_leaves(collectives.unflatten_like(
+                        list(grads), flat))
             return loss.detach(), tree_unflatten(params, list(grads))
 
         return self.mesh.fed_map(one_station, tokens,
@@ -337,10 +347,13 @@ class FedTransformer:
         losses, grads = self.station_grads(params, tokens)
         # explicit cross-station aggregation: the ONLY place station data mixes
         mesh = self.mesh if self.mesh.group is not None else None
-        g_mean = collectives.fed_mean(grads, mask=mask, mesh=mesh)
-        updates, opt_state = self.optimizer.update(g_mean, opt_state, params)
-        params = apply_updates(params, updates)
-        loss = collectives.fed_mean(losses, mask=mask, mesh=mesh)
+        with phase("fed.aggregate"):
+            g_mean = collectives.fed_mean(grads, mask=mask, mesh=mesh)
+            loss = collectives.fed_mean(losses, mask=mask, mesh=mesh)
+        with phase("server.update"):
+            updates, opt_state = self.optimizer.update(g_mean, opt_state,
+                                                       params)
+            params = apply_updates(params, updates)
         return params, opt_state, loss
 
 
