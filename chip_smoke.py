@@ -23,7 +23,10 @@ Phases, each of which raises (exit code 1) on failure:
    scale, fully masked rows (exact zeros) at every width; each error
    beside its tolerance;
 3. f32 gradients through the autograd wrapper, whose forward is the
-   TF32x3 kernel, against the dense reference;
+   TF32x3 kernel (and whose backward is the plain recompute), against the
+   dense reference; then the same shapes in bf16, whose backward is the
+   tensor-core backward kernel, against the float64 dense gradients within
+   ``BF16_GRAD_TOL``, beside the plain backward's error on the same inputs;
 4. the slice at full width: the federated transformer round of the JAX
    package's benchmark model (d_model 1024, 8 layers, 8 heads, seq 1024,
    batch 16, vocab 4096, 4 stations, flash attention) for 8 rounds
@@ -57,7 +60,15 @@ Phases, each of which raises (exit code 1) on failure:
    exps on the special-function units, whichever is largest), and
    ``scaled_dot_product_attention`` in the same dtype as a yardstick (the
    port never calls it), with the backend it picks (its flash backend
-   stops at head dim 256);
+   stops at head dim 256); then the bf16 backward kernel's ms per launch
+   at ``BWD_TIMED``'s shapes (causal: both GPT-2 cells' at D = 64, phase
+   4's at 128 and phase 4 (c)'s at 96), held to the float64 dense
+   gradients and to the plain backward on the same inputs within
+   ``BF16_GRAD_TOL``, beside the plain backward's time, its bound (the
+   Q K^T recompute and the dV, dP, dQ and dK products, 10 D operations a
+   visible pair, against q, k, v, o and dO read and dq, dk and dv written
+   once) and SDPA's backward as the yardstick (timed only); each is a row
+   of the ``kernels`` line;
 6. the flagship FedAvg-CNN at full size (the JAX package's benchmark
    config: 32 stations x 256 examples, Dirichlet 0.5, noise 2.0, 10 local
    steps of batch 32 at lr 0.05, server sgd(1.0), bf16 compute, 5 fused
@@ -411,6 +422,18 @@ GRAD_TOL = 3e-5  # the JAX suite's gradient tolerance
 # bf16 outputs of O(1): 2 ulps of 2^-8 (a different f32 summation order in
 # the kernel can move one rounding of p or of the output)
 BF16_TOL = 2 * 2.0**-8
+# bf16 gradients against float64: each is a sum over the keys (queries) of
+# terms whose factors P and dS the backward kernel rounds to bf16 (2^-9
+# relative each), and it is itself rounded to bf16; 4 ulps of 2^-8 of the
+# largest gradient
+BF16_GRAD_TOL = 4 * 2.0**-8
+# the bf16 backward kernel's timed shapes, causal ((case, B, H, T, D)):
+# both GPT-2 cells' attention calls at D = 64, phase 4's at W = 128, and
+# phase 4 (c)'s at D = 96 (W = 128, zero-filled)
+BWD_TIMED = (("ctx1024_d64", 8, 16, 1024, 64),
+             ("ctx128_d64", 64, 16, 128, 64),
+             ("slice_d128", 16, 8, 1024, 128),
+             ("phi3_d96", 4, 32, 1024, 96))
 # the mean loss over 4 x 16 x 1024 tokens in bf16 compute, flash kernel vs
 # plain blockwise attention: one bf16 ulp of relative difference
 LOSS_RTOL = 2.0**-8
@@ -714,6 +737,7 @@ def phase_gradients(fa, torch, dev):
         before["tf32x3"] += 1
         check(fa.flash_forward_cuda.variant_launches == before,
               "flash_attention in f32 did not launch the TF32x3 kernel")
+        plain_calls = fa.flash_backward_cuda.plain_calls
         grads = torch.autograd.grad(torch.sin(out).sum(), qkv)
         ref = fa.reference(*qkv, q_offset=qo, k_offset=ko, causal=causal)
         ref_grads = torch.autograd.grad(torch.sin(ref).sum(), qkv)
@@ -723,6 +747,36 @@ def phase_gradients(fa, torch, dev):
             print(f"grad d{name} f32 causal={causal} {t_q}x{t_k} "
                   f"off=({qo},{ko}): max_abs_err {err:.3e} tol {lim:.3e}")
             check(err <= lim, f"gradient d{name} disagrees: {err}")
+        check(fa.flash_backward_cuda.plain_calls == plain_calls + 1,
+              "the f32 backward did not take the plain recompute")
+    # the same shapes in bf16: the backward kernel; a loss (out * w).sum()
+    # whose output gradient is w, so that float64 sees the same dO
+    for t_q, t_k, qo, ko, causal in [(96, 96, 0, 0, True),
+                                      (96, 96, 0, 0, False),
+                                      (64, 160, 96, 0, True)]:
+        qkv = [torch.randn(2, 4, t, 64, generator=g, device=dev)
+               .to(torch.bfloat16).requires_grad_() for t in (t_q, t_k, t_k)]
+        w = torch.randn(2, 4, t_q, 64, generator=g, device=dev).to(
+            torch.bfloat16)
+        launches = fa.flash_backward_cuda.launches
+        out = fa.flash_attention(*qkv, q_offset=qo, k_offset=ko,
+                                 causal=causal)
+        grads = torch.autograd.grad((out * w).sum(), qkv)
+        check(fa.flash_backward_cuda.launches == launches + 1,
+              "the bf16 backward did not launch the backward kernel")
+        plain = fa._attention_bwd(*(x.detach() for x in qkv), out.detach(),
+                                  w, qo, ko, causal, 64**-0.5)
+        x64 = [x.detach().double().requires_grad_() for x in qkv]
+        ref = fa.reference(*x64, q_offset=qo, k_offset=ko, causal=causal)
+        ref_grads = torch.autograd.grad(ref, x64, w.double())
+        for name, a, p, r in zip("qkv", grads, plain, ref_grads):
+            err = (a.double() - r).abs().max().item()
+            err_plain = (p.double() - r).abs().max().item()
+            lim = BF16_GRAD_TOL * r.abs().max().item()
+            print(f"grad d{name} bf16 causal={causal} {t_q}x{t_k} "
+                  f"off=({qo},{ko}): kernel max_abs_err {err:.3e} (plain "
+                  f"{err_plain:.3e}) tol {lim:.3e}")
+            check(err <= lim, f"bf16 gradient d{name} disagrees: {err}")
 
 
 def slice_engine(ft, torch, dtype=None, seq_devices=1, shape=FULL,
@@ -814,18 +868,26 @@ def phase_slice(fa, ft, torch, dev, dtype=None, shape=FULL, rounds=ROUNDS,
     torch.cuda.reset_peak_memory_stats()
     fa.flash_forward_cuda.launches = 0
     fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    fa.flash_backward_cuda.launches = 0
+    fa.flash_backward_cuda.plain_calls = 0
     params, opt, losses, secs, state = train_rounds(
         torch, eng, params, opt, tokens, label, rounds=rounds, n_s=n_s,
         must_fall=must_fall)
     launches = dict(fa.flash_forward_cuda.variant_launches)
+    backward = dict(kernel=fa.flash_backward_cuda.launches,
+                    plain=fa.flash_backward_cuda.plain_calls)
     figures = round_figures(torch, secs, shape)
     expect = rounds * n_s * cfg.n_layers
     print(f"flash kernel launches in the {label} run: {launches} "
-          f"(rounds x stations x layers = {expect})")
+          f"(rounds x stations x layers = {expect}); backward {backward}")
     check(launches[variant] == expect,
           f"the {label} run did not run the {variant} kernel")
     check(sum(launches.values()) == expect,
           f"the {label} run ran another kernel than {variant}")
+    bwd = fa.backward_variant(dev, cfg.dtype, cfg.head_dim)
+    check(backward == (dict(kernel=expect, plain=0) if bwd != "plain"
+                       else dict(kernel=0, plain=expect)),
+          f"the {label} run's backward is not all {bwd}: {backward}")
 
     rc_eng = ft.make_engine(
         n_stations=n_s, seq_devices=1,
@@ -848,7 +910,8 @@ def phase_slice(fa, ft, torch, dev, dtype=None, shape=FULL, rounds=ROUNDS,
         head_dim=cfg.head_dim, variant=variant,
         rounds=rounds, losses=losses, **figures,
         launches=launches, launches_per_round=n_s * cfg.n_layers,
-        recompute_loss=rc_loss, loss_rel_diff=rel, loss_rtol=loss_rtol,
+        backward_launches=backward, recompute_loss=rc_loss,
+        loss_rel_diff=rel, loss_rtol=loss_rtol,
     )
     print(f"{label} slice: {res['ms_per_round']:.1f} ms/round, "
           f"{res['tokens_per_s']:.0f} tokens/s, peak "
@@ -1053,8 +1116,9 @@ def phase_times(fa, torch, dev):
     dtype it serves, timed in turns with the kernel beside it on the same
     tensors (a, b, b, a; a, a for one), with its plain version's time,
     ``scaled_dot_product_attention``'s in the same dtype as a yardstick
-    (the port never calls it) and the bound. Returns
-    {case: {variant: figures}}."""
+    (the port never calls it) and the bound; then the backward kernel at
+    each shape of BWD_TIMED (``backward_figures``). Returns {case: {variant
+    or "backward": figures}}."""
     h, t = FULL["n_heads"], FULL["seq"]
     g = torch.Generator(device=dev).manual_seed(2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1113,7 +1177,88 @@ def phase_times(fa, torch, dev):
                   f"{bound_ms:.4f} ms ({term}){floor}")
         res[case] = group
         del q, k, v, out
+    for case, b, h_b, t_b, hd in BWD_TIMED:
+        res[case] = {"backward": backward_figures(fa, torch, dev, g, b, h_b,
+                                                  t_b, hd)}
     return res
+
+
+def backward_bound(b, h, t, d, peak_flops):
+    """(bound_ms, term) of a causal bf16 attention backward at [b, h, t, d]:
+    the Q K^T recompute and the dV, dP, dQ and dK products, 10 d operations
+    a visible pair, over the tensor cores' peak, against q, k, v, o and dO
+    read and dq, dk and dv written once over the memory rate."""
+    pairs = b * h * t * (t + 1) / 2
+    terms = {"tensor": 10.0 * d * pairs / peak_flops,
+             "bytes": 2.0 * 8 * b * h * t * d / PEAK_BYTES}
+    term = max(terms, key=terms.get)
+    return 1e3 * terms[term], term
+
+
+def backward_figures(fa, torch, dev, g, b, h, t, d):
+    """The bf16 backward kernel at [b, h, t, d], causal: its gradients held
+    to the float64 dense gradients and to the plain backward's on the same
+    inputs, ms per launch (CUDA events, two timings in turns with the plain
+    backward's one), the bound, and the backward of
+    ``scaled_dot_product_attention`` on the same tensors as the yardstick
+    (timed only; the port never calls it)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = d**-0.5
+    shape = f"[{b},{h},{t},{d}]"
+    q, k, v, do = (torch.randn(b, h, t, d, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    o = fa.flash_forward_cuda(q, k, v, 0, 0, True, scale)
+
+    def kernel():
+        return fa.flash_backward_cuda(q, k, v, o, do, 0, 0, True, scale)
+
+    def plain():
+        return fa._attention_bwd(q, k, v, o, do, 0, 0, True, scale)
+
+    ours, ref = kernel(), plain()
+    x64 = [x.double().requires_grad_() for x in (q, k, v)]
+    exact = torch.autograd.grad(
+        fa.reference(*x64, q_offset=0, k_offset=0, causal=True, scale=scale),
+        x64, do.double())
+    del x64
+    errs, errs_plain, gaps = [], [], []
+    for name, a, p, r in zip("qkv", ours, ref, exact):
+        errs.append((a.double() - r).abs().max().item())
+        errs_plain.append((p.double() - r).abs().max().item())
+        gaps.append((a.float() - p.float()).abs().max().item())
+        lim = BF16_GRAD_TOL * r.abs().max().item()
+        lim_plain = BF16_GRAD_TOL * p.float().abs().max().item()
+        print(f"backward d{name} {shape} bf16 causal: kernel max_abs_err "
+              f"{errs[-1]:.3e} (plain {errs_plain[-1]:.3e}) tol {lim:.3e}; "
+              f"vs plain {gaps[-1]:.3e} tol {lim_plain:.3e}")
+        check(errs[-1] <= lim,
+              f"backward kernel d{name} vs float64 at {shape}: {errs[-1]}")
+        check(gaps[-1] <= lim_plain,
+              f"backward kernel d{name} vs plain at {shape}: {gaps[-1]}")
+    del exact
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = sdpa(qg, kg, vg, is_causal=True, scale=scale)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), 20)
+    backend = sdpa_backend(torch, q, k, v, scale)
+    ms = [cuda_ms(kernel, 20)]
+    plain_ms = cuda_ms(plain, 3, warmup=1)
+    ms.append(cuda_ms(kernel, 20))
+    bound_ms, term = backward_bound(b, h, t, d, PEAK_BF16_FLOPS)
+    mean = sum(ms) / len(ms)
+    print(f"flash_attention_bwd tensor_core {shape} bf16 causal: kernel "
+          f"{mean:.4f} ms (runs {ms[0]:.4f}, {ms[1]:.4f}), plain "
+          f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms "
+          f"({backend}), bound {bound_ms:.4f} ms ({term}), "
+          f"{100 * bound_ms / mean:.2f}% of it")
+    return dict(dtype="bfloat16", shape=shape, head_dim=d,
+                max_abs_err=max(errs), max_abs_err_runs=errs,
+                plain_max_abs_err=errs_plain, max_abs_err_vs_plain=gaps,
+                ms=mean, ms_runs=ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_backend=backend,
+                bound_ms=bound_ms,
+                bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term)
 
 
 def phase_profile(ft, torch, eng_state, run):
@@ -3680,6 +3825,8 @@ def _transformer_rounds(fa, torch, eng, tokens, params, opt):
         torch.cuda.reset_peak_memory_stats()
     fa.flash_forward_cuda.launches = 0
     fa.flash_forward_cuda.variant_launches = dict.fromkeys(fa.KERNELS, 0)
+    fa.flash_backward_cuda.launches = 0
+    fa.flash_backward_cuda.plain_calls = 0
     losses, ms = [], []
     for _ in range(DIST_TRANSFORMER["rounds"]):
         t0 = time.perf_counter()
@@ -3697,11 +3844,13 @@ def _dist_transformer(fa, ft, torch, dev, group, backend, out_path):
     rounds over the group against the one-card engine, bit for bit; the
     one-card params and losses are written to ``out_path`` for the gloo
     ranks."""
-    runs = {}
+    runs, backward = {}, {}
     for which, grp in (("one_card", None), (backend, group)):
         eng, tokens, params, opt = _transformer_engine(ft, torch, dev, grp)
         runs[which] = _transformer_rounds(fa, torch, eng, tokens, params,
                                           opt)
+        backward[which] = (fa.flash_backward_cuda.launches,
+                           fa.flash_backward_cuda.plain_calls)
         del eng, tokens, params, opt
     (p1, l1, ms1, peak1, n1), (pg, lg, msg, peakg, ng) = (
         runs["one_card"], runs[backend])
@@ -3714,6 +3863,9 @@ def _dist_transformer(fa, ft, torch, dev, group, backend, out_path):
     check(ng.get("tensor_core", 0) == expect == sum(ng.values()),
           f"the {backend} transformer rounds launched {ng}, not {expect} "
           "tensor_core kernels")
+    check(backward[backend] == backward["one_card"] == (expect, 0),
+          f"the transformer rounds' backward kernel launches and plain "
+          f"calls {backward}, not ({expect}, 0)")
     torch.save({"params": [x.cpu() for x in _leaves(p1)], "losses": l1},
                out_path)
     res = dict(bit_identical=True, losses=lg, round_ms=msg,
@@ -6975,12 +7127,15 @@ def phase_cli(fa, torch, dev):
 
 
 def kernel_rows(fa, times, flash_runs, other_launches):
-    """The ``kernels`` line: each kernel at each dtype and width it was
-    timed at (``times`` from ``phase_times``). ``launches`` are those of
-    the flash runs (``flash_runs``) in that dtype at that head dim, and
-    ``launches_<phase>`` the other phases' counts of the variant
+    """The ``kernels`` line: each forward kernel at each dtype and width it
+    was timed at, and the backward kernel at each shape of BWD_TIMED
+    (``times`` from ``phase_times``). ``launches`` are those of the flash
+    runs (``flash_runs``) in that dtype at that head dim, and
+    ``launches_<phase>`` the other phases' counts of a forward variant
     (``other_launches``: {phase: {variant: count}}). Fails unless each
-    flash run's kernel has a row whose launches are that run's, above 0."""
+    flash run's forward kernel, and its backward kernel where the kernel
+    served its backward, has a row whose launches are that run's, above
+    0."""
     from vantage6_tpu_torch.ops import _build
 
     kernels = []
@@ -7004,7 +7159,23 @@ def kernel_rows(fa, times, flash_runs, other_launches):
                     "bound_ms", "bound_by", "bound_term", "library_ms",
                     "library_backend")},
             ))
-    for r in flash_runs:  # each main path's kernel: a row, and launches
+    bwd = fa.BACKWARD_KERNEL
+    for case, _, _, _, hd in BWD_TIMED:
+        kernels.append(dict(
+            name=f"{bwd.symbol.removeprefix('v6t_')}_bf16_{case}",
+            variant="backward", route="cuda",
+            source="vantage6_tpu_torch/ops/csrc/"
+                   + _build.SOURCES[bwd.library],
+            replaces=None,  # the JAX package's backward is jnp
+            launches=sum(r["backward_launches"]["kernel"] for r in flash_runs
+                         if r["head_dim"] == hd
+                         and r["config"]["dtype"] == "bfloat16"),
+            **{key: times[case]["backward"][key] for key in (
+                "dtype", "shape", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "bound_term", "library_ms",
+                "library_backend")},
+        ))
+    for r in flash_runs:  # each main path's kernels: a row, and launches
         check(any(kr["variant"] == r["variant"]
                   and kr["dtype"] == r["config"]["dtype"]
                   and kr["shape"].endswith(f",{r['head_dim']}]")
@@ -7012,6 +7183,14 @@ def kernel_rows(fa, times, flash_runs, other_launches):
                   for kr in kernels),
               f"the {r['variant']} kernel at D = {r['head_dim']} has no row "
               "or launched no time on its main path")
+        n_bwd = r["backward_launches"]["kernel"]
+        check(n_bwd == 0 or any(
+                  kr["variant"] == "backward"
+                  and kr["dtype"] == r["config"]["dtype"]
+                  and kr["shape"].endswith(f",{r['head_dim']}]")
+                  and kr["launches"] == n_bwd for kr in kernels),
+              f"the backward kernel at D = {r['head_dim']} has no row for "
+              f"its {n_bwd} launches on its main path")
     return kernels
 
 
@@ -7045,8 +7224,9 @@ def main(argv: list[str]) -> int:
     for name, s in build_s.items():
         print(f"build {name}: {s:.1f} s")
         for line in _build.build_log(name).splitlines():
-            fn = re.search(r"Function properties for \S*?(flash_fwd_\w+?E)",
-                           line)
+            fn = re.search(
+                r"Function properties for \S*?(flash_(?:fwd|bwd)_\w+?E)",
+                line)
             if fn:
                 print(f"  {fn.group(1)}")
             elif any(w in line for w in ("registers", "spill", "smem",

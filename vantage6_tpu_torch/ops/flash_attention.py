@@ -15,9 +15,20 @@ the next one; above 256 it cuts O into column slabs of at most 256 and
 accumulates q.k over depth chunks (``KernelVariant.split``); the wrapper
 zero-pads a D that is not a multiple of 8.
 ``csrc/flash_attention.cu``, on the CUDA cores, is reachable by
-``variant="cuda_core"`` only. The backward is ``_attention_bwd``, a plain
-blockwise recompute, as in the JAX package, where it is ``jnp`` and not a
-Pallas kernel.
+``variant="cuda_core"`` only.
+
+The backward recomputes attention from (q, k, v, o); which implementation
+serves a call is decided by what the input shows (``backward_variant``,
+the table ``_BWD_DISPATCH``): bf16 CUDA tensors at head dims 1-128 go to
+``csrc/flash_attention_bwd_tc.cu`` (``flash_backward_cuda``; wgmma, bf16
+products with f32 row statistics and softmax, causal tiles skipped, no
+atomics, so repeated calls give the same bits), whose plain version is
+``backward_reference``; every other call (CPU tensors, f32, D > 128) to
+``_attention_bwd``, a plain f32 blockwise recompute, as in the JAX
+package, where the backward is ``jnp`` and not a Pallas kernel. The
+kernel replaces no TPU kernel; it was added because the plain backward,
+all f32 on the CUDA cores with every score block in device memory, took
+most of a bf16 transformer round on the card.
 
 ``q_offset``/``k_offset`` give the global position of the first query/key
 token, so the same kernel serves monolithic causal attention (offsets 0)
@@ -126,6 +137,18 @@ KERNELS = {
 # the kernel that serves each dtype, at every head dim
 _DISPATCH = {torch.bfloat16: "tensor_core", torch.float32: "tf32x3"}
 
+# the hand-written backward (csrc/flash_attention_bwd_tc.cu: wgmma, two
+# kernels a call on 64 x 64 tile pairs), at every head dim up to its widest
+BACKWARD_KERNEL = KernelVariant(
+    "flash_attention_bwd_tc", "v6t_flash_attention_bwd_tc", 64, 64,
+    (torch.bfloat16,), (16, 32, 64, 128), pads=True,
+)
+# the backward that serves each (device type, dtype) up to the kernel's
+# widest head dim; every other call, and a wider head dim, takes the plain
+# recompute ``_attention_bwd``. f32 stays plain: bf16 products would be a
+# lower precision than an f32 configuration states.
+_BWD_DISPATCH = {("cuda", torch.bfloat16): "tensor_core"}
+
 
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
     """The kernel that serves a CUDA call: bf16 goes to wgmma, f32 to the
@@ -136,6 +159,17 @@ def kernel_variant(dtype: torch.dtype, d: int) -> str:
     if dtype not in _DISPATCH:
         raise ValueError(f"unsupported dtype {dtype} (float32, bfloat16)")
     return _DISPATCH[dtype]
+
+
+def backward_variant(device: torch.device | str, dtype: torch.dtype,
+                     d: int) -> str:
+    """The backward that serves a call on ``device`` in ``dtype`` at head
+    dim ``d``: ``"tensor_core"`` (``flash_backward_cuda``) or ``"plain"``
+    (``_attention_bwd``)."""
+    variant = _BWD_DISPATCH.get((torch.device(device).type, dtype))
+    if variant is None or BACKWARD_KERNEL.width(d) is None:
+        return "plain"
+    return variant
 
 
 def _check_supported(dtype: torch.dtype, d: int, scale: float,
@@ -234,6 +268,90 @@ def flash_forward_cuda(q, k, v, q_offset, k_offset, causal, scale,
 # kernel launches, in all and per variant; reset by the caller
 flash_forward_cuda.launches = 0
 flash_forward_cuda.variant_launches = dict.fromkeys(KERNELS, 0)
+
+
+def flash_backward_cuda(q, k, v, o, do, q_offset, k_offset, causal, scale):
+    """Launch the backward kernel: (dq, dk, dv) of o = attention(q, k, v)
+    for the output gradient ``do``, in the inputs' dtype.
+
+    Takes contiguous 16-byte aligned bf16 CUDA tensors on one device, q,
+    o and do ``[B, H, Tq, D]``, k and v ``[B, H, Tk, D]``, D from 1 to 128,
+    and any finite scale; raises on anything the kernel does not take (the
+    checks of dtype, shapes and scale need no card). Ragged Tq/Tk are
+    masked inside the kernel; a D that is not a multiple of 8 is zero-padded
+    here (one copy of each input) and the gradients sliced back. The
+    kernel's row statistics L and D go to an f32 scratch of ``[B*H, Tq]``
+    rows rounded up to 64."""
+    spec = BACKWARD_KERNEL
+    tensors = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
+    for name, x in tensors:
+        if x.dtype not in spec.dtypes:
+            raise ValueError(f"the backward kernel takes {spec.dtypes}, not "
+                             f"{name} in {x.dtype}")
+        if x.dim() != 4:
+            raise ValueError(f"{name} must be [B, H, T, D], got {x.shape}")
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    if (o.shape != q.shape or do.shape != q.shape or k.shape != v.shape
+            or k.shape[:2] != (b, h) or k.shape[3] != d):
+        raise ValueError(f"shape mismatch q={q.shape} k={k.shape} "
+                         f"v={v.shape} o={o.shape} do={do.shape}")
+    if spec.width(d) is None:
+        raise ValueError(f"the backward kernel takes head dims 1-"
+                         f"{spec.head_dims[-1]}, not {d}")
+    if not math.isfinite(scale):
+        raise ValueError(f"scale must be finite, not {scale}")
+    for name, x in tensors:
+        if not x.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+        if x.device != q.device:
+            raise ValueError("q, k, v, o and do must lie on one device")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    d_pad = -d % 8
+    if d_pad:
+        q, k, v, o, do = (torch.nn.functional.pad(x, (0, d_pad))
+                          for x in (q, k, v, o, do))
+    if any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
+        raise ValueError("q, k, v, o and do must be 16-byte aligned")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b * h == 0:
+        return dq[..., :d], dk[..., :d], dv[..., :d]
+    lse_rows = -(-t_q // spec.block_q) * spec.block_q
+    stats = torch.empty((2, b * h, lse_rows), dtype=torch.float32,
+                        device=q.device)
+    lib = _build.load(spec.library)
+    fn = getattr(lib, spec.symbol)
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(),
+            _KERNEL_DTYPES[q.dtype], b * h, t_q, t_k, d + d_pad, lse_rows,
+            int(q_offset), int(k_offset), int(bool(causal)), float(scale),
+            stream,
+        )
+    _build.check(lib, err, "flash_attention_bwd (tensor_core) launch")
+    flash_backward_cuda.launches += 1
+    flash_backward_cuda.width_launches[spec.width(d)] += 1
+    if d_pad:
+        return tuple(x[..., :d].contiguous() for x in (dq, dk, dv))
+    return dq, dk, dv
+
+
+# kernel calls, in all and per instantiated width; CUDA calls that the
+# plain backward served (f32, D > 128); reset by the caller
+flash_backward_cuda.launches = 0
+flash_backward_cuda.width_launches = dict.fromkeys(
+    BACKWARD_KERNEL.head_dims, 0)
+flash_backward_cuda.plain_calls = 0
 
 
 def kernel_reference(
@@ -407,10 +525,86 @@ def _attention_bwd(q, k, v, o, do, q_offset, k_offset, causal, scale,
     )
 
 
+def backward_reference(q, k, v, o, do, q_offset=0, k_offset=0, causal=False,
+                       scale=None, block=64):
+    """The backward kernel's tiled algorithm in plain PyTorch: its plain
+    version, as ``kernel_reference`` is the forward's.
+
+    The same 64 x 64 tile pairs (``block``) as the kernel's two passes:
+    on causal calls a pair in which every query precedes every key is
+    skipped; L = m + log(l) from the online max (floored at ``M_FLOOR``)
+    and sum over the visible key tiles in order, l = 0 keeping L = m; D =
+    rowsum(do o) in f32; then per visible pair P = exp(S - L), dP = do v^T,
+    dS = P (dP - D), with every product taking operands in the inputs'
+    dtype and accumulating in f32: P and dS are rounded to that dtype
+    where they enter a product (bf16 inputs: as the kernel rounds them; f32
+    inputs: no rounding), and dq = scale dS k, dk = scale dS^T q,
+    dv = P^T do, returned in the inputs' dtype."""
+    scale = _default_scale(q.shape[-1], scale)
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    dt = q.dtype
+    n_qt, n_kt = -(-t_q // block), -(-t_k // block)
+    pad_q, pad_k = n_qt * block - t_q, n_kt * block - t_k
+    q, o, do = (_pad_seq(x, pad_q).reshape(b * h, n_qt, block, d)
+                for x in (q, o, do))
+    k, v = (_pad_seq(x, pad_k).reshape(b * h, n_kt, block, d) for x in (k, v))
+    dev = q.device
+    rows = torch.arange(block, device=dev)
+
+    def visible(i, j):  # some query of tile i sees some key of tile j
+        return not (causal and q_offset + min((i + 1) * block, t_q) - 1
+                    < k_offset + j * block)
+
+    def scores(i, j):
+        s = _f32_matmul(q[:, i], k[:, j].transpose(-1, -2)) * scale
+        qi, kj = i * block + rows[:, None], j * block + rows[None, :]
+        ok = (kj < t_k) & (qi < t_q)
+        if causal:
+            ok = ok & (q_offset + qi >= k_offset + kj)
+        return torch.where(ok, s, NEG_INF)
+
+    big_l = torch.empty((b * h, n_qt, block), device=dev)
+    for i in range(n_qt):
+        m = torch.full((b * h, block), NEG_INF, device=dev)
+        l = torch.zeros_like(m)
+        for j in range(n_kt):
+            if visible(i, j):
+                s = scores(i, j)
+                m_new = torch.maximum(m, s.amax(-1).clamp_min(M_FLOOR))
+                l = (l * torch.exp(m - m_new)
+                     + torch.exp(s - m_new[..., None]).sum(-1))
+                m = m_new
+        big_l[:, i] = torch.where(l > 0, m + torch.log(torch.where(
+            l > 0, l, 1.0)), m.clamp_min(M_FLOOR))
+    d_term = (do.float() * o.float()).sum(-1)  # [BH, n_qt, block]
+
+    dq = torch.zeros(q.shape, device=dev)
+    dk = torch.zeros(k.shape, device=dev)
+    dv = torch.zeros(v.shape, device=dev)
+    for i in range(n_qt):
+        for j in range(n_kt):
+            if not visible(i, j):
+                continue
+            p = torch.exp(scores(i, j) - big_l[:, i, :, None])
+            dp = _f32_matmul(do[:, i], v[:, j].transpose(-1, -2))
+            ds = p * (dp - d_term[:, i, :, None])
+            p, ds = p.to(dt), ds.to(dt)
+            dv[:, j] += _f32_matmul(p.transpose(-1, -2), do[:, i])
+            dk[:, j] += _f32_matmul(ds.transpose(-1, -2), q[:, i])
+            dq[:, i] += _f32_matmul(ds, k[:, j])
+
+    def out(x, t):
+        return x.reshape(b, h, -1, d)[:, :, :t].to(dt)
+
+    return out(dq * scale, t_q), out(dk * scale, t_k), out(dv, t_k)
+
+
 class _RecomputeVJP(torch.autograd.Function):
     """Counterpart of ``_attach_recompute_vjp``: ``forward`` computes
     o = attention(q, k, v); the saved tensors are only (q, k, v, o) — never
-    the [Tq, Tk] scores — and the backward is ``_attention_bwd``."""
+    the [Tq, Tk] scores — and the backward is the one ``backward_variant``
+    names: the kernel (``flash_backward_cuda``) or ``_attention_bwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset, k_offset, causal, scale, forward):
@@ -425,7 +619,12 @@ class _RecomputeVJP(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
         with phase("attention_bwd"):
-            dq, dk, dv = _attention_bwd(q, k, v, o, do, *ctx.attrs)
+            if backward_variant(q.device, q.dtype, q.shape[-1]) == "plain":
+                flash_backward_cuda.plain_calls += q.is_cuda
+                dq, dk, dv = _attention_bwd(q, k, v, o, do, *ctx.attrs)
+            else:
+                dq, dk, dv = flash_backward_cuda(
+                    *(x.contiguous() for x in (q, k, v, o, do)), *ctx.attrs)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -445,7 +644,8 @@ def flash_attention(
     Differentiable: the forward runs the CUDA kernel on CUDA tensors (its
     plain version ``kernel_reference`` on CPU tensors, with these block
     sizes; the kernel picks its own tiles); the backward recomputes
-    attention blockwise from (q, k, v, o) — see ``_attention_bwd``."""
+    attention from (q, k, v, o) — the kernel ``flash_backward_cuda`` for
+    bf16 CUDA tensors at D <= 128, else ``_attention_bwd``."""
     scale = _default_scale(q.shape[-1], scale)
 
     def forward(q, k, v, q_offset, k_offset, causal, scale):
