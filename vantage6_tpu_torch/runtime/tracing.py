@@ -29,8 +29,11 @@ records a `device.profile` span carrying the torch.profiler log dir, so a
 Chrome trace of the card's kernels is joinable to its federated trace by
 trace_id. Inside that trace, `phase` names the parts of a training round
 (a station's forward and backward, compression, aggregation, the server
-step, the fused runner's dispatch) on the profiler's own clock; it costs
-nothing while no profiler is active (`RoundPhases`).
+step, the fused runner's dispatch, a mixture of experts' routing and
+experts) on the profiler's own clock; it costs nothing while no profiler
+is active (`RoundPhases`). `COUNTERS` keeps counts on the card under the
+same switch, such as the token-slots routed to each expert
+(`DeviceCounters`).
 
 The port's copy of ``vantage6_tpu/runtime/tracing.py``: the same span
 names, propagation and export; the round phases are the port's own.
@@ -630,6 +633,40 @@ def _marked(name: str, captured: CapturedPhases | None) -> Iterator[None]:
 
 PHASES = RoundPhases()
 phase = PHASES.phase
+
+
+class DeviceCounters:
+    """Counts a round keeps on the card while a profiler watches.
+
+    ``add(name, values)`` adds a tensor of counts into ``name``'s running
+    total, on the tensor's device: one kernel and no read on the host, so
+    a round runs on as it would. With no ``torch.profiler`` session active
+    it does nothing, as ``phase`` does. ``drain`` hands out the totals,
+    still on the card, and empties the store: a reader copies them to the
+    host after its traced window."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._totals: dict[str, torch.Tensor] = {}
+
+    def add(self, name: str, values: torch.Tensor) -> None:
+        if not _profiler_enabled():
+            return
+        with self._lock:
+            total = self._totals.get(name)
+            if total is None:
+                self._totals[name] = values.detach().to(torch.int64,
+                                                        copy=True)
+            else:
+                total.add_(values)
+
+    def drain(self) -> dict[str, torch.Tensor]:
+        with self._lock:
+            out, self._totals = self._totals, {}
+        return out
+
+
+COUNTERS = DeviceCounters()
 
 
 # ------------------------------------------------------------------- export

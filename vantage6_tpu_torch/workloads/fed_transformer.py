@@ -35,6 +35,14 @@ Under a profiler a round names its parts (``runtime.tracing.phase``):
 each station's ``fed.forward`` and ``fed.backward``, then
 ``fed.aggregate`` and ``server.update``.
 
+The engine runs two model families. ``TransformerConfig`` is GPT-2's
+decoder, defined here. ``models.mla_moe.MLAMoEConfig`` is DeepSeek-V3's
+block (latent attention, a sigmoid-routed mixture of experts of which the
+layer holds a share), on one card with ``seq_devices == 1``; its fixed
+buffers (the router and its correction bias) ride the engine as
+``buffers``, outside the trained tree. Both share the round: per-station gradients,
+``fed_mean``, Adam.
+
 Parameters keep the JAX layout (``qkv`` is ``[d, 3d]`` used as ``h @ W``),
 so ``params_from_jax``/``params_to_numpy`` move weights across without a
 transpose.
@@ -54,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 from vantage6_tpu_torch._tree import tree_leaves, tree_map, tree_unflatten
 from vantage6_tpu_torch.core.mesh import FederationMesh, resolve_device
 from vantage6_tpu_torch.fed import collectives
+from vantage6_tpu_torch.models import mla_moe
 from vantage6_tpu_torch.ops.flash_attention import (
     flash_attention,
     recompute_attention,
@@ -251,9 +260,12 @@ class FedTransformer:
     process group whose slots are ``seq_devices`` ranks each."""
 
     mesh: FederationMesh
-    cfg: TransformerConfig
+    cfg: TransformerConfig | mla_moe.MLAMoEConfig
     optimizer: Adam
     seq_devices: int = 1  # sequence shards of each station's sequences
+    # the MLA family's fixed buffers (``mla_moe.init_buffers``); None for
+    # GPT-2's
+    buffers: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -263,7 +275,10 @@ class FedTransformer:
         """Parameters from ``generator`` (or a seed) and the Adam state."""
         if isinstance(generator, int):
             generator = torch.Generator().manual_seed(generator)
-        params = init_params(generator, self.cfg, self.device)
+        init = (mla_moe.init_params
+                if isinstance(self.cfg, mla_moe.MLAMoEConfig)
+                else init_params)
+        params = init(generator, self.cfg, self.device)
         return params, self.optimizer.init(params)
 
     def shard_tokens(self, tokens: np.ndarray | torch.Tensor) -> torch.Tensor:
@@ -312,7 +327,10 @@ class FedTransformer:
         def one_station(tok, params):
             leaves = tree_map(lambda x: x.detach().requires_grad_(), params)
             with phase("fed.forward"):
-                if group is None:
+                if isinstance(self.cfg, mla_moe.MLAMoEConfig):
+                    loss = mla_moe.loss_local(leaves, tok, self.cfg,
+                                              self.buffers)
+                elif group is None:
                     loss = loss_local(leaves, tok, self.cfg, p)
                 else:
                     loss = loss_local(leaves, tok, self.cfg, group=group)
@@ -364,6 +382,7 @@ def make_engine(
     lr: float = 1e-3,
     device: str | torch.device | None = None,
     group: Any = None,
+    buffers: Any = None,
 ) -> FedTransformer:
     """The engine on ``device`` (CUDA unless ``"cpu"`` is asked for).
     Without ``group`` the S stations fold into the card's one slot, and
@@ -371,8 +390,21 @@ def make_engine(
     Over ``group`` (a ``torch.distributed`` group of W ranks, one card
     each; building it is collective, see ``FederationMesh``) the ranks
     form W / seq_devices slots of ``seq_devices`` ranks, the reference's
-    (station, seq) mesh, and every rank of the group must hold a slot."""
+    (station, seq) mesh, and every rank of the group must hold a slot.
+
+    With an ``MLAMoEConfig`` the engine runs on one card at
+    ``seq_devices == 1``; ``buffers`` are its fixed buffers
+    (``mla_moe.init_buffers``), drawn from seed 0 when not given."""
     cfg = cfg or TransformerConfig()
+    if isinstance(cfg, mla_moe.MLAMoEConfig):
+        if seq_devices != 1 or group is not None:
+            raise ValueError(
+                "the MLA-MoE family runs on one card with the full "
+                f"sequence (seq_devices == 1, no group; got {seq_devices}, "
+                f"{group!r})")
+        if buffers is None:
+            buffers = mla_moe.init_buffers(torch.Generator().manual_seed(0),
+                                           cfg, device)
     if cfg.attention in ("flash", "recompute") and seq_devices != 1:
         raise ValueError(
             f"attention={cfg.attention!r} needs the full sequence per "
@@ -393,7 +425,7 @@ def make_engine(
                 f"of {seq_devices} ranks; run the engine on "
                 f"{mesh.station_axis_size * seq_devices} ranks")
     return FedTransformer(mesh=mesh, cfg=cfg, optimizer=adam(lr),
-                          seq_devices=seq_devices)
+                          seq_devices=seq_devices, buffers=buffers)
 
 
 def make_federated_tokens(
