@@ -62,7 +62,7 @@ Phases, each of which raises (exit code 1) on failure:
    port never calls it), with the backend it picks (its flash backend
    stops at head dim 256); then the bf16 backward kernel's ms per launch
    at ``BWD_TIMED``'s shapes (causal: both GPT-2 cells' at D = 64, phase
-   4's at 128 and phase 4 (c)'s at 96), held to the float64 dense
+   4's at 128, phase 4 (c)'s at 96 and the Moonlight cell's at 192), held to the float64 dense
    gradients and to the plain backward on the same inputs within
    ``BF16_GRAD_TOL``, beside the plain backward's time, its bound (the
    Q K^T recompute and the dV, dP, dQ and dK products, 10 D operations a
@@ -428,12 +428,14 @@ BF16_TOL = 2 * 2.0**-8
 # largest gradient
 BF16_GRAD_TOL = 4 * 2.0**-8
 # the bf16 backward kernel's timed shapes, causal ((case, B, H, T, D)):
-# both GPT-2 cells' attention calls at D = 64, phase 4's at W = 128, and
-# phase 4 (c)'s at D = 96 (W = 128, zero-filled)
+# both GPT-2 cells' attention calls at D = 64, phase 4's at W = 128,
+# phase 4 (c)'s at D = 96 (W = 128, zero-filled), and the Moonlight cell's
+# MLA call at q/k 192 (the W = 192 pair)
 BWD_TIMED = (("ctx1024_d64", 8, 16, 1024, 64),
              ("ctx128_d64", 64, 16, 128, 64),
              ("slice_d128", 16, 8, 1024, 128),
-             ("phi3_d96", 4, 32, 1024, 96))
+             ("phi3_d96", 4, 32, 1024, 96),
+             ("moonlight_d192", 8, 16, 2048, 192))
 # the mean loss over 4 x 16 x 1024 tokens in bf16 compute, flash kernel vs
 # plain blockwise attention: one bf16 ulp of relative difference
 LOSS_RTOL = 2.0**-8

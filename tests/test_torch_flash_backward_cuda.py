@@ -65,7 +65,9 @@ def _f64_grads(q, k, v, do, q_offset, k_offset, causal, scale):
 # D^-0.5): both GPT-2 cells' shapes; the widths 16, 32, 80 (on W = 128's
 # zero-filled columns) and 128, and 8, 24 and 96 (below a width too), and
 # 12 (padded to 16 by the wrapper), with ragged, ring-hop and masked rows;
-# a negative scale and scale 0
+# a negative scale and scale 0. W = 192: the Moonlight cell's call
+# [8, 16, 2048, 192] and a smaller one, 160 and 136 on zero-filled columns,
+# 130 (padded to 136), and ragged, ring-hop and masked rows at 160 and 192
 SHAPES = [
     (8, 16, 1024, 1024, 64, 0, 0, True, None),
     (64, 16, 128, 128, 64, 0, 0, True, None),
@@ -76,6 +78,13 @@ SHAPES = [
     *((1, 2, 257, 100, d, 37, 90, True, None) for d in (12, 32, 80, 128)),
     (1, 2, 130, 200, 64, 70, 0, True, -0.2),
     (1, 2, 130, 200, 64, 70, 0, True, 0.0),
+    (8, 16, 2048, 2048, 192, 0, 0, True, None),
+    (2, 16, 1024, 1024, 192, 0, 0, True, None),
+    *((2, 3, 200, 200, d, 0, 0, True, None) for d in (130, 136, 160)),
+    *((2, 3, 130, 70, d, 0, 0, False, None) for d in (160, 192)),
+    *((2, 2, 150, 333, d, 183, 0, True, None) for d in (160, 192)),
+    *((1, 2, 257, 100, d, 37, 90, True, None) for d in (160, 192)),
+    (1, 2, 130, 200, 192, 70, 0, True, -0.2),
 ]
 
 
@@ -86,6 +95,35 @@ def test_kernel_matches_float64_and_plain(cuda, shape):
     scale = d**-0.5 if scale is None else scale
     q, k, v, o, do = _inputs(cuda, b, h, t_q, t_k, d, qo, ko, causal, scale,
                              d)
+    ours = _check_kernel(q, k, v, o, do, qo, ko, causal, scale)
+    if causal and ko > qo:  # rows before the first key: exact zeros
+        assert (ours[0][:, :, :ko - qo] == 0).all()
+
+
+@pytest.mark.cuda
+def test_kernel_at_mla_widths_gives_zero_dv_columns(cuda):
+    """MLA's call (``mla_moe.attend``): q/k 192 wide, v 128 zero-padded to
+    192, so o and dO are zero from column 128 too. The W = 192 kernels hold
+    to float64 and the plain backward as every row does, and dV's padded
+    columns read exactly 0."""
+    scale = 192**-0.5
+    q, k, v, _, do = _inputs(cuda, 2, 16, 1024, 1024, 192, 0, 0, True,
+                             scale, 7)
+    v[..., 128:] = 0
+    do[..., 128:] = 0
+    o = tfa.reference(q.float(), k.float(), v.float(), 0, 0, True,
+                      scale).to(torch.bfloat16)
+    assert (o[..., 128:] == 0).all()
+    before = tfa.flash_backward_cuda.width_launches[192]
+    dq, dk, dv = _check_kernel(q, k, v, o, do, 0, 0, True, scale)
+    assert tfa.flash_backward_cuda.width_launches[192] == before + 1
+    assert (dv[..., 128:] == 0).all()
+    assert bool((dv[..., :128] != 0).any())
+
+
+def _check_kernel(q, k, v, o, do, qo, ko, causal, scale):
+    """The kernel's gradients, held to float64, the plain backward and
+    ``backward_reference`` on the same inputs."""
     before = tfa.flash_backward_cuda.launches
     ours = tfa.flash_backward_cuda(q, k, v, o, do, qo, ko, causal, scale)
     assert tfa.flash_backward_cuda.launches == before + 1
@@ -109,8 +147,7 @@ def test_kernel_matches_float64_and_plain(cuda, shape):
         assert over.max().item() <= 0, (name, over.max().item())
         assert (a - t).norm() <= PLAIN_NORM * t.norm(), (
             name, ((a - t).norm() / t.norm()).item())
-    if causal and ko > qo:  # rows before the first key: exact zeros
-        assert (ours[0][:, :, :ko - qo] == 0).all()
+    return ours
 
 
 @pytest.mark.cuda
@@ -121,6 +158,21 @@ def test_kernel_is_deterministic(cuda):
                              5)
     first = tfa.flash_backward_cuda(q, k, v, o, do, 0, 0, True, 0.125)
     second = tfa.flash_backward_cuda(q, k, v, o, do, 0, 0, True, 0.125)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_wide_kernel_is_deterministic(cuda):
+    """The same at W = 192, at the Moonlight cell's call, whose dK/dV
+    blocks are two warpgroups that hand P^T from one to the other."""
+    scale = 192**-0.5
+    q, k, v, o, do = _inputs(cuda, 8, 16, 2048, 2048, 192, 0, 0, True,
+                             scale, 5)
+    before = tfa.flash_backward_cuda.width_launches[192]
+    first = tfa.flash_backward_cuda(q, k, v, o, do, 0, 0, True, scale)
+    second = tfa.flash_backward_cuda(q, k, v, o, do, 0, 0, True, scale)
+    assert tfa.flash_backward_cuda.width_launches[192] == before + 2
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 

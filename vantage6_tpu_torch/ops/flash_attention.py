@@ -19,11 +19,12 @@ zero-pads a D that is not a multiple of 8.
 
 The backward recomputes attention from (q, k, v, o); which implementation
 serves a call is decided by what the input shows (``backward_variant``,
-the table ``_BWD_DISPATCH``): bf16 CUDA tensors at head dims 1-128 go to
+the table ``_BWD_DISPATCH``): bf16 CUDA tensors at head dims 1-192 go to
 ``csrc/flash_attention_bwd_tc.cu`` (``flash_backward_cuda``; wgmma, bf16
 products with f32 row statistics and softmax, causal tiles skipped, no
-atomics, so repeated calls give the same bits), whose plain version is
-``backward_reference``; every other call (CPU tensors, f32, D > 128) to
+atomics, so repeated calls give the same bits; 129-192 on a pair of
+kernels of their own), whose plain version is ``backward_reference``;
+every other call (CPU tensors, f32, D > 192) to
 ``_attention_bwd``, a plain f32 blockwise recompute, as in the JAX
 package, where the backward is ``jnp`` and not a Pallas kernel. The
 kernel replaces no TPU kernel; it was added because the plain backward,
@@ -138,10 +139,11 @@ KERNELS = {
 _DISPATCH = {torch.bfloat16: "tensor_core", torch.float32: "tf32x3"}
 
 # the hand-written backward (csrc/flash_attention_bwd_tc.cu: wgmma, two
-# kernels a call on 64 x 64 tile pairs), at every head dim up to its widest
+# kernels a call on 64 x 64 tile pairs), at every head dim up to its widest;
+# W = 192 (head dims 129-192) is a pair of its own, two warpgroups a block
 BACKWARD_KERNEL = KernelVariant(
     "flash_attention_bwd_tc", "v6t_flash_attention_bwd_tc", 64, 64,
-    (torch.bfloat16,), (16, 32, 64, 128), pads=True,
+    (torch.bfloat16,), (16, 32, 64, 128, 192), pads=True,
 )
 # the backward that serves each (device type, dtype) up to the kernel's
 # widest head dim; every other call, and a wider head dim, takes the plain
@@ -275,7 +277,7 @@ def flash_backward_cuda(q, k, v, o, do, q_offset, k_offset, causal, scale):
     for the output gradient ``do``, in the inputs' dtype.
 
     Takes contiguous 16-byte aligned bf16 CUDA tensors on one device, q,
-    o and do ``[B, H, Tq, D]``, k and v ``[B, H, Tk, D]``, D from 1 to 128,
+    o and do ``[B, H, Tq, D]``, k and v ``[B, H, Tk, D]``, D from 1 to 192,
     and any finite scale; raises on anything the kernel does not take (the
     checks of dtype, shapes and scale need no card). Ragged Tq/Tk are
     masked inside the kernel; a D that is not a multiple of 8 is zero-padded
@@ -347,7 +349,7 @@ def flash_backward_cuda(q, k, v, o, do, q_offset, k_offset, causal, scale):
 
 
 # kernel calls, in all and per instantiated width; CUDA calls that the
-# plain backward served (f32, D > 128); reset by the caller
+# plain backward served (f32, D > 192); reset by the caller
 flash_backward_cuda.launches = 0
 flash_backward_cuda.width_launches = dict.fromkeys(
     BACKWARD_KERNEL.head_dims, 0)
@@ -645,7 +647,7 @@ def flash_attention(
     plain version ``kernel_reference`` on CPU tensors, with these block
     sizes; the kernel picks its own tiles); the backward recomputes
     attention from (q, k, v, o) — the kernel ``flash_backward_cuda`` for
-    bf16 CUDA tensors at D <= 128, else ``_attention_bwd``."""
+    bf16 CUDA tensors at D <= 192, else ``_attention_bwd``."""
     scale = _default_scale(q.shape[-1], scale)
 
     def forward(q, k, v, q_offset, k_offset, causal, scale):
